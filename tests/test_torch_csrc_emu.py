@@ -1,0 +1,133 @@
+"""The CUDA sources of the port, compiled for the host and run on the CPU.
+
+There is no nvcc here, so each csrc/*.cu is rewritten into C++ against a
+small serial emulation of CUDA (EMU_HEADER below: one thread a block
+for kernels with shared memory, every thread in turn otherwise),
+built with g++ -ffp-contract=off (like nvcc --fmad=false) and called
+through the same C entry points the wrappers use.  It checks the kernels'
+indexing, halos and arithmetic against their plain versions, bit for bit;
+it cannot see races, launch limits or anything the GPU compiler refuses,
+which only chip_smoke.py on the card can.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_darktable_torch.kernels._build import CSRC
+from tpu_darktable_torch.kernels.bilateral_band import bilateral_band_plain
+from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
+from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
+from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
+
+torch.set_num_threads(1)
+# Serial CPU emulation of the CUDA subset the csrc/*.cu sources use.
+EMU_HEADER = r'''#pragma once
+#include <cmath>
+#include <cstddef>
+#include <vector>
+#include <algorithm>
+#include <functional>
+using std::min; using std::max;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+struct dim3 { unsigned x, y, z; dim3(unsigned a=1, unsigned b=1, unsigned c=1): x(a), y(b), z(c) {} };
+static dim3 threadIdx(0,0,0), blockIdx(0,0,0), blockDim(1,1,1), gridDim(1,1,1);
+static float* emu_smem = nullptr;
+inline void __syncthreads() {}
+typedef void* cudaStream_t;
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
+template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+inline int cudaGetLastError() { return 0; }
+// Kernels with shared memory run one thread a block (their loops stride by
+// blockDim); kernels without it run every thread of the block in turn.
+inline void emu_launch(dim3 g, unsigned threads, size_t smem, std::function<void()> body) {
+  std::vector<float> buf(smem / sizeof(float) + 1);
+  emu_smem = buf.data(); gridDim = g;
+  const unsigned nt = smem ? 1 : threads;
+  blockDim = dim3(nt, 1, 1);
+  for (unsigned z = 0; z < g.z; ++z) for (unsigned y = 0; y < g.y; ++y) for (unsigned x = 0; x < g.x; ++x)
+    for (unsigned t = 0; t < nt; ++t) { blockIdx = dim3(x, y, z); threadIdx = dim3(t, 0, 0); body(); }
+}
+'''
+
+
+def _launch(m):
+    name, cfg, args = m.group(1), [p.strip() for p in m.group(2).split(',')], m.group(3)
+    smem = cfg[2] if len(cfg) > 2 else '0'
+    return f'emu_launch(dim3({cfg[0]}), {cfg[1]}, {smem}, [&]{{ {name}({args}); }});'
+
+
+@pytest.fixture(scope='module')
+def emu_lib(tmp_path_factory):
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++ to build the host emulation')
+    out = tmp_path_factory.mktemp('emu')
+    (out / 'cuda_emu.h').write_text(EMU_HEADER)
+    libs = {}
+    for cu in sorted(CSRC.glob('*.cu')):
+        s = cu.read_text().replace('#include <cuda_runtime.h>', '#include "cuda_emu.h"')
+        s = s.replace('extern __shared__ float smem[];', 'float* smem = emu_smem;')
+        s = re.sub(r'(\w+)<<<(.*?)>>>\((.*?)\);', _launch, s, flags=re.S)
+        cpp = out / f'{cu.stem}.cpp'
+        cpp.write_text(s)
+        so = out / f'lib{cu.stem}.so'
+        subprocess.run(['g++', '-std=c++17', '-O2', '-ffp-contract=off', '-shared', '-fPIC',
+                        '-o', str(so), str(cpp)], check=True, capture_output=True, timeout=300)
+        libs[cu.stem] = ctypes.CDLL(str(so))
+    return libs
+
+
+def _p(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.mark.parametrize('pattern', ['RGGB', 'BGGR', 'GRBG', 'GBRG'])
+def test_rcd_interior_source_on_host(emu_lib, rng, pattern):
+    """Two tiles and a ragged edge each way; interior bit-exact."""
+    h, w = 76, 102
+    x = rng.random((h, w)).astype(np.float32)
+    out = np.zeros((3, h, w), np.float32)
+    rp, bp = site_parities(BayerPattern[pattern])
+    fn = emu_lib['rcd_interior'].rcd_interior_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    assert fn(_p(x), _p(out), h, w, rp[0], rp[1], bp[0], bp[1], None) == 0
+    ref = rcd_interior_plain(torch.from_numpy(x), r_par=rp, b_par=bp).numpy()
+    r = RING
+    np.testing.assert_array_equal(out[:, r:-r, r:-r], ref[:, r:-r, r:-r])
+
+
+@pytest.mark.parametrize('n_passes', [1, 3, 5])
+def test_color_smooth_source_on_host(emu_lib, rng, n_passes):
+    h, w = 70, 45
+    d = (rng.random((2, h, w)) - 0.5).astype(np.float32)
+    g = (rng.random((h, w)) - 0.1).astype(np.float32)
+    out = np.zeros_like(d)
+    fn = emu_lib['color_smooth'].color_smooth_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert fn(_p(d), _p(g), _p(out), h, w, n_passes, None) == 0
+    ref = color_smooth_diffs_plain(torch.from_numpy(d), torch.from_numpy(g), n_passes=n_passes)
+    np.testing.assert_array_equal(out, ref.numpy())
+
+
+@pytest.mark.parametrize('h,w,s,gz,sr', [(60, 84, 2, 6, 0.2), (48, 64, 8, 6, 0.2),
+                                         (30, 42, 3, 11, 0.1), (20, 24, 1, 6, 0.2)])
+def test_bilateral_band_source_on_host(emu_lib, rng, h, w, s, gz, sr):
+    lum = (rng.random((h, w)) * 0.95).astype(np.float32)
+    out = np.zeros_like(lum)
+    ga = np.zeros((gz, h // s + 1, w // s + 1), np.float32)
+    gb = np.zeros_like(ga)
+    fn = emu_lib['bilateral_band'].bilateral_band_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    assert fn(_p(lum), _p(out), _p(ga), _p(gb), h, w, s, gz, sr, None) == 0
+    ref = bilateral_band_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr)
+    np.testing.assert_array_equal(out, ref.numpy())

@@ -1,0 +1,203 @@
+"""The port end to end against the JAX package, on the CPU: the FULL
+pipeline over two batches (EMA exercised), the RCD goldens, the settings
+schema, state carried across, device rules, and the port's isolation from
+JAX.  Output tolerance: 1 uint8 count; EMA state: atol 1e-5.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import tpu_darktable as td
+from tpu_darktable.ops import packed as jpacked
+from tpu_darktable.pipeline import ImageProcessor as JProcessor
+from tpu_darktable.pipeline.camera_settings import load_camera_settings_from_dir as j_load_cams
+from tpu_darktable.pipeline.config import (
+    Debayer as JDebayer,
+    ImageProcessingSettings as JSettings,
+    ToneMapper as JTone,
+)
+from tpu_darktable.pipeline.image_processor import build_pipeline_fn
+
+import tpu_darktable_torch as tt
+from tpu_darktable_torch.convert import processor_state_from_numpy, settings_from_dict
+from tpu_darktable_torch.pipeline.config import ImageProcessingSettings as TSettings
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+GOLDEN = REPO / 'tests' / 'goldens' / 'pipeline_goldens.npz'
+
+FULL = dict(debayer=JDebayer.rcd, postprocess=True, enable_denoise=True,
+            enable_bilateral=True, tone_mapping=JTone.adaptive_aces, tone_gamma=1.5,
+            tone_intensity=2.0, light_adapt=0.8, vibrance=0.5)
+WB = (1.2, 1.0, 1.1)
+
+
+def _frames(w, h, n, seed, ids=False):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(n):
+        m = np.clip(0.4 + 0.3 * np.sin(xx / (9.0 + i)) * np.cos(yy / 7.0)
+                    + rng.normal(0, 0.04, (h, w)), 0, 1).astype(np.float32)
+        out.append(np.asarray(jpacked.encode12_float(jnp.asarray(m.reshape(-1)), ids_format=ids)))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize('size', [(128, 96), (320, 240)])
+def test_full_pipeline_two_batches(size):
+    """FULL settings, RGGB Packed12 with WB, two batches of 2: port output
+    within 1 count of build_pipeline_fn; bounds/metrics within 1e-5."""
+    w, h = size
+    js = JSettings(**FULL)
+    fn = jax.jit(build_pipeline_fn(js, size, td.BayerPattern.RGGB, td.PackedFormat.Packed12, True))
+    proc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             settings_from_dict(js.model_dump()), device='cpu', white_balance=WB)
+    frames = _frames(w, h, 4, seed=7)
+    bounds, metrics = jnp.zeros(2, jnp.float32), jnp.zeros(5, jnp.float32)
+    for k in range(2):
+        batch = frames[2 * k : 2 * k + 2]
+        alpha = jnp.float32(1.0 if k == 0 else js.moving_average)
+        ref, bounds, metrics = fn(jnp.asarray(batch), jnp.asarray(WB, jnp.float32),
+                                  bounds, metrics, alpha)
+        out = proc.process_batch(batch)
+        assert out.shape == (2, h, w, 3) and out.dtype == torch.uint8
+        d = np.abs(np.asarray(ref).astype(int) - out.numpy().astype(int))
+        assert d.max() <= 1, (k, d.max())
+        np.testing.assert_allclose(proc.bounds.numpy(), np.asarray(bounds), atol=1e-5)
+        np.testing.assert_allclose(proc.metrics.numpy(), np.asarray(metrics), atol=1e-5)
+
+
+def _golden_input(size, ids):
+    # tests/test_goldens.py:_input_bytes, on the port's encoder
+    w, h = size
+    rng = np.random.default_rng(1234)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    mosaic = np.clip(0.4 + 0.25 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+                     + rng.normal(0, 0.04, (h, w)).astype(np.float32), 0, 1)
+    return tt.encode(torch.from_numpy(mosaic.reshape(-1).astype(np.float32)),
+                     tt.PackedFormat.Packed12_IDS if ids else tt.PackedFormat.Packed12)
+
+
+_DN_BIL = dict(enable_denoise=True, enable_bilateral=True)
+_PLAIN = dict(enable_denoise=False, enable_bilateral=False)
+GOLDEN_CASES = {
+    'rcd_reinhard': ((96, 64), 'RGGB', False, _DN_BIL),
+    'rcd_reinhard_ids': ((96, 64), 'RGGB', True, _DN_BIL),
+    'rcd_bggr': ((96, 64), 'BGGR', False, _PLAIN),
+    'rcd_grbg': ((96, 64), 'GRBG', False, _PLAIN),
+    'rcd_4to3_aspect': ((320, 240), 'RGGB', False, _DN_BIL),
+}
+
+
+@pytest.mark.parametrize('name', list(GOLDEN_CASES))
+def test_rcd_goldens(name):
+    """Every golden whose settings need only ported stages: 1 count."""
+    size, pattern, ids, extra = GOLDEN_CASES[name]
+    settings = TSettings(tone_intensity=2.0, tone_gamma=1.2, light_adapt=0.8, vibrance=0.3,
+                         debayer=tt.Debayer.rcd, tone_mapping=tt.ToneMapper.reinhard,
+                         postprocess=True, **extra)
+    proc = tt.ImageProcessor(size, tt.BayerPattern[pattern],
+                             tt.PackedFormat.Packed12_IDS if ids else tt.PackedFormat.Packed12,
+                             settings, device='cpu', white_balance=WB)
+    out = proc.process(_golden_input(size, ids), 'x').numpy()
+    ref = np.load(GOLDEN)[name]
+    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_settings_schema_matches_jax():
+    """Field for field: names, order, defaults; enum members and values."""
+    t_fields = {f.name: f for f in dataclasses.fields(TSettings)}
+    j_fields = JSettings.model_fields
+    assert list(t_fields) == list(j_fields)
+    for name, jf in j_fields.items():
+        tf = t_fields[name]
+        t_default = tf.default
+        j_default = jf.default
+        if isinstance(j_default, (JDebayer, JTone)):
+            assert t_default.name == j_default.name and t_default.value == j_default.value
+        else:
+            assert t_default == j_default, name
+    for t_enum, j_enum in ((tt.Debayer, JDebayer), (tt.ToneMapper, JTone)):
+        assert [(m.name, m.value) for m in t_enum] == [(m.name, m.value) for m in j_enum]
+    with pytest.raises(ValueError):
+        TSettings(tone_gamma=9.0)
+    with pytest.raises(ValueError):
+        TSettings(denoise_overlap=1)
+
+
+def test_settings_round_trip_and_camera_files(tmp_path):
+    js = JSettings(**FULL, denoise_overlap=2, resize_width=1024)
+    ts = settings_from_dict(js.model_dump())
+    assert ts.to_dict() == js.model_dump(mode='json')
+    assert JSettings.model_validate(ts.to_dict()) == js
+    ts.save_json(tmp_path / 's.json')
+    assert TSettings.load_json(tmp_path / 's.json') == ts
+    t_cams = tt.load_camera_settings_from_dir()
+    j_cams = j_load_cams()
+    assert set(t_cams) == set(j_cams)
+    for name, jc in j_cams.items():
+        assert t_cams[name].to_dict() == jc.model_dump(mode='json'), name
+
+
+def test_state_carried_from_jax():
+    """EMA state and WB taken from a JAX ImageProcessor continue the same
+    next batch in the port: 1 count, state 1e-5."""
+    size = (128, 96)
+    js = JSettings(**FULL)
+    jproc = JProcessor(size, td.BayerPattern.RGGB, td.PackedFormat.Packed12, js,
+                       white_balance=WB)
+    frames = _frames(*size, 2, seed=11)
+    jproc.process_batch(jnp.asarray(frames[:1]))
+    tproc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                              settings_from_dict(js.model_dump()), device='cpu')
+    processor_state_from_numpy(tproc, np.asarray(jproc.bounds), np.asarray(jproc.metrics),
+                               np.asarray(jproc.white_balance))
+    ref = np.asarray(jproc.process_batch(jnp.asarray(frames[1:])))
+    out = tproc.process_batch(frames[1:]).numpy()
+    assert np.abs(ref.astype(int) - out.astype(int)).max() <= 1
+    np.testing.assert_allclose(tproc.metrics.numpy(), np.asarray(jproc.metrics), atol=1e-5)
+
+
+def test_device_rules():
+    """Entry points default to the card and never fall back to the CPU."""
+    settings = TSettings(**{k: v for k, v in FULL.items() if k not in ('debayer', 'tone_mapping')})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='cuda'):
+            tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, settings)
+    with pytest.raises(NotImplementedError):
+        tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                          dataclasses.replace(settings, debayer=tt.Debayer.ppg), device='cpu')
+    proc = tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             settings, device='cpu')
+    with pytest.raises(tt.pipeline.ImageSizeMismatchError):
+        proc.process_batch(np.zeros((1, 100), np.uint8))
+
+
+def test_port_imports_without_jax():
+    """The port imports with jax and tpu_darktable blocked, and no source
+    file of it names either."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_darktable'] = None\n"
+        "import tpu_darktable_torch, tpu_darktable_torch.convert\n"
+        "import tpu_darktable_torch.kernels.rcd_interior, tpu_darktable_torch.kernels._build\n"
+        "import tpu_darktable_torch.kernels.color_smooth, tpu_darktable_torch.kernels.bilateral_band\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
+    )
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    import re
+    bad = re.compile(r'^\s*(import jax|from jax|import tpu_darktable[. ]|import tpu_darktable$'
+                     r'|from tpu_darktable[. ])', re.M)
+    for path in [*sorted((REPO / 'tpu_darktable_torch').rglob('*.py')), REPO / 'chip_smoke.py']:
+        assert not bad.search(path.read_text()), path

@@ -1,0 +1,129 @@
+"""Bilateral-grid detail term: wrapper of csrc/bilateral_band.cu and its
+plain version.
+
+Replaces the TPU kernel tpu_darktable/kernels/bilateral_band.py:bilateral_band
+(+ riffle_phases): for an integer sigma_s = s dividing the frame, z-tent
+splat -> 5-tap gaussian x, gaussian y, derivative z (zero truncation) ->
+trilinear slice, giving l_diff at (H, W).
+
+On the H100 the function's floor is its ~94 float ops a pixel (s=2, gz=6),
+just above its 8 bytes a pixel (lum read once, l_diff written once); the
+short chain of launches (splat, three blurs, slice) adds a grid of
+gz * (H/s + 1) * (W/s + 1) floats passed through HBM, which bounds it in
+practice.  The splat is in
+gather form (each cell reads its 2s x 2s pixel window), so no atomics and
+a fixed summation order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import launches
+
+_W_GAUSS = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+_W_DERIV = (-2.0 / 16.0, -4.0 / 16.0, 0.0, 4.0 / 16.0, 2.0 / 16.0)
+
+
+def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> torch.Tensor:
+    """(H, W) float32 luminance -> (H, W) float32 l_diff on the
+    (gz, H/s + 1, W/s + 1) grid; H and W must divide by s."""
+    if lum.dtype != torch.float32 or lum.ndim != 2:
+        raise RuntimeError(f'lum must be a 2-D float32 tensor, got {lum.dtype} {tuple(lum.shape)}')
+    h, w = lum.shape
+    if s < 1 or h % s or w % s:
+        raise ValueError(f'sigma_s {s} must divide the frame {h}x{w}')
+    if gz < 2:
+        raise ValueError(f'gz must be >= 2, got {gz}')
+    if lum.device.type == 'cpu':
+        return bilateral_band_plain(lum, s=s, gz=gz, sigma_r=sigma_r)
+    if not lum.is_cuda:
+        raise RuntimeError(f'bilateral_band: unsupported device {lum.device}')
+    from ._build import check, load
+
+    fn = load('bilateral_band').bilateral_band_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    x = lum.contiguous()
+    out = torch.empty_like(x)
+    grid_a = torch.empty((gz, h // s + 1, w // s + 1), dtype=torch.float32, device=x.device)
+    grid_b = torch.empty_like(grid_a)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(fn(x.data_ptr(), out.data_ptr(), grid_a.data_ptr(), grid_b.data_ptr(),
+                 h, w, s, gz, float(sigma_r), stream),
+              'bilateral_band')
+    launches['bilateral_band'] += 1
+    return out
+
+
+def _blur5(grid: torch.Tensor, axis: int, weights) -> torch.Tensor:
+    """5-tap correlation along `axis` with zero boundary (truncated taps)."""
+    pads = [0, 0] * grid.ndim
+    pads[2 * (grid.ndim - 1 - axis)] = 2
+    pads[2 * (grid.ndim - 1 - axis) + 1] = 2
+    p = torch.nn.functional.pad(grid, pads)
+    n = grid.shape[axis]
+    out = 0.0
+    for t, wt in enumerate(weights):
+        if wt == 0.0:
+            continue
+        out = out + wt * p.narrow(axis, t, n)
+    return out
+
+
+def _splat_axis(img: torch.Tensor, axis: int, n_cells: int, s: int) -> torch.Tensor:
+    """Tent splat along `axis` by s strided slices: phase m of cell c gets
+    weight 1 - m/s, phase m of cell c - 1 gets m/s."""
+    img = img.movedim(axis, -1)
+    out = 0.0
+    for m in range(s):
+        sl = img[..., m::s]
+        k = sl.shape[-1]
+        f = m / s
+        out = out + torch.nn.functional.pad(sl * (1.0 - f), (0, n_cells - k))
+        if f > 0.0:
+            out = out + torch.nn.functional.pad(sl * f, (1, n_cells - k - 1))
+    return out.movedim(-1, axis)
+
+
+def bilateral_band_plain(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> torch.Tensor:
+    """Plain PyTorch version: the JAX package's XLA chain on the integer
+    fast path (ops/bilateral.py), slab by slab."""
+    h, w = lum.shape
+    gy, gx = h // s + 1, w // s + 1
+    g_z = torch.clamp(lum / sigma_r, 0.0, gz - 1)
+    contrib = 1.0 / (s * s)
+    slabs = []
+    for z in range(gz):
+        wz = torch.clamp(1.0 - torch.abs(g_z - z), min=0.0)
+        slabs.append(_splat_axis(_splat_axis(wz * contrib, 1, gx, s), 0, gy, s))
+    grid = torch.stack(slabs)
+    grid = _blur5(grid, 2, _W_GAUSS)
+    grid = _blur5(grid, 1, _W_GAUSS)
+    grid = _blur5(grid, 0, _W_DERIV)
+
+    ib_z = torch.clamp(g_z.to(torch.int32), max=gz - 2)
+    frac_z = g_z - ib_z.to(torch.float32)
+    frac = torch.arange(s, dtype=torch.float32, device=lum.device) / s
+    frac_row = frac.repeat(h // s)[:, None]
+    frac_col = frac.repeat(w // s)[None, :]
+
+    def xy_slice(slab):
+        r0 = torch.repeat_interleave(slab[:-1], s, dim=0)
+        r1 = torch.repeat_interleave(slab[1:], s, dim=0)
+        ry = r0 * (1.0 - frac_row) + r1 * frac_row
+        c0 = torch.repeat_interleave(ry[:, :-1], s, dim=1)
+        c1 = torch.repeat_interleave(ry[:, 1:], s, dim=1)
+        return c0 * (1.0 - frac_col) + c1 * frac_col
+
+    l_diff = torch.zeros_like(lum)
+    for z in range(gz):
+        wz = torch.where(ib_z == z, 1.0 - frac_z, torch.where(ib_z + 1 == z, frac_z, 0.0))
+        l_diff = l_diff + wz * xy_slice(grid[z])
+    return l_diff
+
+
+__all__ = ['bilateral_band', 'bilateral_band_plain']

@@ -1,0 +1,71 @@
+"""Colour-smoothing median cascade: wrapper of csrc/color_smooth.cu and its
+plain version.
+
+Replaces the TPU kernel tpu_darktable/kernels/color_smooth.py:color_smooth_diffs
+(N sequential 3x3 median passes over the two (C - G) difference planes,
+zero fill outside the image renewed every pass).
+
+On the H100 the cascade is bound by its compare-exchanges: 3 passes x 2
+planes x 54 min/max/add a pixel (324 ops) outweigh its 20 bytes a pixel
+(one read of the two diff planes and g, one write of the two planes).  The kernel runs all N passes
+of a 32x32 tile (+ N px halo) in shared memory, so the N-1 intermediate
+passes never reach HBM.  It only compares and adds like the plain version,
+so the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import launches
+from ..ops._stencil import Shifter, median9
+
+
+def color_smooth_diffs(diffs: torch.Tensor, g: torch.Tensor, *, n_passes: int) -> torch.Tensor:
+    """(2, H, W) float32 (R-G, B-G) planes and the (H, W) raw green plane ->
+    the (2, H, W) planes after `n_passes` passes; the caller rebuilds each
+    channel as d + max(g, 0)."""
+    if diffs.dtype != torch.float32 or diffs.ndim != 3 or diffs.shape[0] != 2:
+        raise RuntimeError(f'diffs must be (2, H, W) float32, got {diffs.dtype} {tuple(diffs.shape)}')
+    if g.dtype != torch.float32 or tuple(g.shape) != tuple(diffs.shape[1:]):
+        raise RuntimeError(f'g must be (H, W) float32 matching diffs, got {g.dtype} {tuple(g.shape)}')
+    if g.device != diffs.device:
+        raise RuntimeError(f'diffs on {diffs.device} but g on {g.device}')
+    if not 1 <= n_passes <= 32:
+        raise ValueError(f'n_passes must be in [1, 32], got {n_passes}')
+    if diffs.device.type == 'cpu':
+        return color_smooth_diffs_plain(diffs, g, n_passes=n_passes)
+    if not diffs.is_cuda:
+        raise RuntimeError(f'color_smooth_diffs: unsupported device {diffs.device}')
+    from ._build import check, load
+
+    fn = load('color_smooth_diffs').color_smooth_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    d = diffs.contiguous()
+    gg = g.contiguous()
+    _, h, w = d.shape
+    out = torch.empty_like(d)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(fn(d.data_ptr(), gg.data_ptr(), out.data_ptr(), h, w, n_passes, stream),
+              'color_smooth_diffs')
+    launches['color_smooth_diffs'] += 1
+    return out
+
+
+def color_smooth_diffs_plain(diffs: torch.Tensor, g: torch.Tensor, *, n_passes: int) -> torch.Tensor:
+    """Plain PyTorch version: the recurrence pass by pass, each pass reading
+    its 3x3 neighbourhood with zero fill outside the image."""
+    gc = torch.clamp(g, min=0.0)
+    d = diffs
+    for p in range(n_passes):
+        s = Shifter(d, 1)
+        med = median9([s(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+        d = torch.clamp(med + (g if p == 0 else gc), min=0.0) - gc
+    return d
+
+
+__all__ = ['color_smooth_diffs', 'color_smooth_diffs_plain']

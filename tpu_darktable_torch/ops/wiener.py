@@ -1,0 +1,325 @@
+"""Overlapped-tile spectral Wiener denoise (counterpart of
+tpu_darktable/ops/wiener.py:33-302 and 305-594).
+
+The overlapping K x K tiles regroup into overlap^2 non-overlapping cosets;
+the windowed 2-D DFT is separable, so analysis and synthesis are short
+einsums against bases built in numpy (`_sep_bases`), and the overlap-add is
+a sum of padded cosets: no scatters, no atomics.  The einsums go to
+torch.einsum in true float32: TF32 is switched off and the float32 matmul
+precision must be "highest" (TF32 has not been measured against the 1e-3
+parity budget yet).
+
+`storage_dtype` / `spectral_dtype` (float16) are STORAGE knobs: the big
+intermediates are kept in float16 and upcast at the point of use; the math
+stays float32.
+
+Frames too small for the reflect-pad fast path take the per-coset gather
+path with the rDFT basis (`_rdft2_basis`), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_F32 = torch.float32
+_EPS = 1e-15
+
+
+def _require_fp32_matmul(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if torch.get_float32_matmul_precision() != 'highest':
+            raise RuntimeError(
+                'wiener_denoise needs torch.get_float32_matmul_precision() == "highest": '
+                'TF32 DFT products are not validated against the 1e-3 budget')
+
+
+def _gaussian_window(k: int, weight: float) -> np.ndarray:
+    """1-D Gaussian window, L2-normalized."""
+    half = k / 2.0
+    scale = weight * half * half
+    r = np.linspace(-half + 0.5, half - 0.5, k, dtype=np.float64)
+    vals = np.exp(-(r * r) / scale)
+    vals = vals / np.sqrt(np.sum(vals * vals))
+    return vals.astype(np.float32)
+
+
+def _reflect_index(idx: np.ndarray, limit: int) -> np.ndarray:
+    """Mirror without edge repeat below 0, with edge repeat above limit-1
+    (the reference's asymmetric reflect_index)."""
+    idx = np.where(idx < 0, -idx, idx)
+    idx = np.where(idx >= limit, 2 * limit - idx - 1, idx)
+    return np.clip(idx, 0, limit - 1)
+
+
+def _rdft2_basis(k: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """Real 2-D DFT as analysis (2R, K^2) and synthesis (2R, K^2) matrices
+    over one representative of each conjugate frequency pair."""
+    coords = np.arange(k)
+    xx, yy = np.meshgrid(coords, coords, indexing='ij')
+    flat_x = xx.reshape(-1)
+    flat_y = yy.reshape(-1)
+    reps, self_conj = [], []
+    for u in range(k):
+        for v in range(k):
+            pu, pv = (k - u) % k, (k - v) % k
+            if (u, v) <= (pu, pv):
+                reps.append((u, v))
+                self_conj.append((u, v) == (pu, pv))
+    r = len(reps)
+    ang = np.zeros((r, k * k), dtype=np.float64)
+    for i, (u, v) in enumerate(reps):
+        ang[i] = 2.0 * np.pi * (u * flat_x + v * flat_y) / k
+    cos_rows = np.cos(ang)
+    sin_rows = np.sin(ang)
+    sin_rows[np.asarray(self_conj)] = 0.0
+    analysis = np.concatenate([cos_rows, sin_rows], axis=0)
+    w = np.where(np.asarray(self_conj), 1.0, 2.0)[:, None] / (k * k)
+    synthesis = np.concatenate([cos_rows * w, sin_rows * w], axis=0)
+    return analysis.astype(np.float32), synthesis.astype(np.float32), r
+
+
+def _sep_bases(k: int, wf: np.ndarray, wi: np.ndarray) -> dict:
+    """Bases of the separable windowed-DFT formulation (numpy float64,
+    cast to float32); see the JAX package's _sep_bases for the derivation."""
+    u_count = k // 2 + 1
+    i = np.arange(k)
+    u = np.arange(u_count)
+    ang_u = 2.0 * np.pi * np.outer(i, u) / k
+    b_row = np.concatenate(
+        [np.cos(ang_u) * wf[:, None], np.sin(ang_u) * wf[:, None], np.ones((k, 1))], axis=1)
+    v = np.arange(k)
+    ang_v = 2.0 * np.pi * np.outer(v, i) / k
+    cos_c = (np.cos(ang_v) * wf[None, :]).T
+    sin_c = (np.sin(ang_v) * wf[None, :]).T
+    cos_s = np.cos(ang_v) * wi[None, :]
+    sin_s = np.sin(ang_v) * wi[None, :]
+    b_reim = np.block([[cos_c, -sin_c], [-sin_c, -cos_c]])
+    w_hat = np.fft.fft2(np.outer(wf, wf))[:u_count, :]
+    rho = np.where((u == 0) | (u == k // 2), 1.0, 2.0) / (k * k)
+    row_cos = (np.cos(ang_u) * wi[:, None] * rho[None, :]).T
+    row_sin = (-np.sin(ang_u) * wi[:, None] * rho[None, :]).T
+    b_row_syn = np.concatenate([row_cos, row_sin, (wf * wi)[None, :]], axis=0)
+    cs_s = np.block([[cos_s, sin_s], [-sin_s, cos_s]])
+    perm = np.empty(2 * k, dtype=np.int64)
+    perm[0::2] = np.arange(k)
+    perm[1::2] = np.arange(k) + k
+    f32 = lambda a: a.astype(np.float32)
+    return dict(
+        u_count=u_count,
+        b_row=f32(b_row),
+        b_reim=f32(b_reim),
+        cs_s2=f32(cs_s[:, perm]),
+        w_hat_re=f32(w_hat.real.copy()),
+        w_hat_im=f32(w_hat.imag.copy()),
+        b_row_syn_spec=f32(b_row_syn[:-1]),
+        wfwi=f32(wf * wi),
+    )
+
+
+def _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
+                      spectral_dtype=None, storage_dtype=None):
+    """Separable-DFT Wiener core on the reflect-padded (Hp, Wp, C) image."""
+    dev = xr.device
+    stride = k // ov
+    grid_h = (h + k + stride - 1) // stride + ov
+    grid_w = (w + k + stride - 1) // stride + ov
+    n_ty = -(-grid_h // ov)
+    n_tx = -(-grid_w // ov)
+    bb = {n: (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a)
+          for n, a in _sep_bases(k, wf, wi).items()}
+    uc = bb['u_count']
+    acc_h = (ov - 1) * stride + n_ty * k
+    acc_w = (ov - 1) * stride + n_tx * k
+    assert xr.shape[0] >= acc_h and xr.shape[1] >= acc_w, (xr.shape, acc_h, acc_w)
+    sig2 = (sigmas * sigmas).reshape(1, 1, 1, 1, 1, -1)
+
+    store = lambda t, dt: t if dt is None else t.to(dt)
+    use = lambda t: t if t.dtype == _F32 else t.to(_F32)
+
+    # ---- row analysis ----
+    win = torch.stack([xr[p * stride : p * stride + n_ty * k, :acc_w] for p in range(ov)]
+                      ).reshape(ov, n_ty, k, acc_w, c)
+    rout = store(torch.einsum('ptkwc,kf->ptwfc', win, bb['b_row']), storage_dtype)
+    del win
+
+    # ---- column analysis: packed re|im basis ----
+    cwin = torch.stack([rout[:, :, q * stride : q * stride + n_tx * k] for q in range(ov)],
+                       dim=2).reshape(ov, n_ty, ov, n_tx, k, 2 * uc + 1, c)
+    del rout
+    g_all = torch.cat([cwin[..., :uc, :], cwin[..., uc : 2 * uc, :]], dim=4)
+    mean = use(cwin[..., 2 * uc, :]).sum(dim=4) / (k * k)
+    del cwin
+    reim = store(torch.einsum('ptqxjuc,jv->ptqxvuc', use(g_all), bb['b_reim']), spectral_dtype)
+    del g_all
+    re_x = use(reim[..., :k, :, :])
+    im_x = use(reim[..., k:, :, :])
+    del reim
+
+    # ---- mean-corrected spectral gain ----
+    m_b = mean[:, :, :, :, None, None, :]
+    w_re = bb['w_hat_re'].T[None, None, None, None, :, :, None]
+    w_im = bb['w_hat_im'].T[None, None, None, None, :, :, None]
+    re_t = re_x - m_b * w_re
+    im_t = im_x - m_b * w_im
+    del re_x, im_x
+    power = re_t * re_t + im_t * im_t + _EPS
+    gain = torch.clamp(power - sig2[..., None, :], min=0.0) / power
+    del power
+    s_all = store(torch.cat([re_t * gain, im_t * gain], dim=4), spectral_dtype)
+    del re_t, im_t, gain
+
+    # ---- column synthesis (interleaved basis) ----
+    t_all = store(torch.einsum('ptqxvfc,vm->ptqxmfc', use(s_all), bb['cs_s2'])
+                  .reshape(ov, n_ty, ov, n_tx, k, 2 * uc, c), storage_dtype)
+    del s_all
+
+    # ---- column overlap-add ----
+    def _pad_cols(t, q, trailing):
+        pads = [0, 0] * trailing + [q * stride, acc_w - n_tx * k - q * stride]
+        return F.pad(t, pads)
+
+    cacc = sum(_pad_cols(use(t_all[:, :, q]).reshape(ov, n_ty, n_tx * k, -1, c), q, 2)
+               for q in range(ov))
+    del t_all
+    u_col = bb['wfwi']
+    mpiece = mean[..., None, :] * u_col[None, None, None, None, :, None]
+    macc = sum(_pad_cols(mpiece[:, :, q].reshape(ov, n_ty, n_tx * k, c), q, 1)
+               for q in range(ov))
+
+    # ---- row synthesis + mean broadcast + row overlap-add ----
+    y = store(torch.einsum('ptwfc,fk->ptkwc', cacc, bb['b_row_syn_spec']), storage_dtype)
+    del cacc
+    yfull = use(y) + macc[:, :, None, :, :] * u_col[None, None, :, None, None]
+    del y
+    out = sum(
+        F.pad(yfull[p].reshape(n_ty * k, acc_w, c),
+              (0, 0, 0, 0, p * stride, acc_h - n_ty * k - p * stride))
+        for p in range(ov)
+    )
+    mask = mrow[:, None] * mcol[None, :]
+    return out[k : k + h, k : k + w] / (mask[k : k + h, k : k + w, None] + _EPS)
+
+
+def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
+                   overlap_factor: int = 4, fft_scale: float = 0.3,
+                   interp_scale: float = 0.3, spectral_dtype=None,
+                   storage_dtype=None) -> torch.Tensor:
+    """Wiener-filter an (H, W) or (H, W, C) image, C in {1, 3}.
+
+    Args:
+        noise_sigmas: scalar or (C,) per-channel noise sigma.
+        tile_size: K in {16, 32}.
+        overlap_factor: 2, 4 or 8; tile stride = K / overlap_factor.
+        spectral_dtype / storage_dtype: optional float16 storage of the
+            spectral / row and tile intermediates (separable path only).
+
+    Returns:
+        (H, W, C) float32.
+    """
+    x = image.to(_F32)
+    if x.ndim == 2:
+        x = x[..., None]
+    if x.ndim != 3 or x.shape[-1] not in (1, 3):
+        raise RuntimeError(
+            f'image must be (H, W) or (H, W, C) with C in {{1, 3}}, got shape {tuple(image.shape)}')
+    h, w, c = x.shape
+    k = tile_size
+    if k not in (16, 32):
+        raise ValueError(f'tile_size must be 16 or 32, got {k}')
+    if overlap_factor not in (2, 4, 8):
+        raise ValueError(f'overlap_factor must be 2, 4, or 8, got {overlap_factor}')
+    dev = x.device
+    _require_fp32_matmul(dev)
+    sigmas = torch.as_tensor(noise_sigmas, dtype=_F32, device=dev).reshape(-1).expand(c)
+
+    ov = overlap_factor
+    stride = k // ov
+    h_pad, w_pad = h + 2 * k, w + 2 * k
+    grid_h = (h + k + stride - 1) // stride + ov
+    grid_w = (w + k + stride - 1) // stride + ov
+    wf = _gaussian_window(k, fft_scale)
+    wi = _gaussian_window(k, interp_scale)
+    wprod = wf * wi
+
+    def _mask_1d(n_pad, grid_n):
+        m = np.zeros(n_pad, dtype=np.float64)
+        for g in range(grid_n):
+            o = g * stride
+            end = min(o + k, n_pad)
+            if end > o:
+                m[o:end] += wprod[: end - o]
+        return torch.as_tensor(m.astype(np.float32), device=dev)
+
+    mrow = _mask_1d(h_pad, grid_h)
+    mcol = _mask_1d(w_pad, grid_w)
+
+    # Reflect-pad once so every coset slab is a contiguous slice; frames
+    # narrower than the reflection take the gather path below.
+    n_ty_max = -(-grid_h // ov)
+    n_tx_max = -(-grid_w // ov)
+    pad_lo = k
+    pad_hi_r = max(2 * k, n_ty_max * k - stride - h)
+    pad_hi_c = max(2 * k, n_tx_max * k - stride - w)
+    if h > pad_hi_r and w > pad_hi_c:
+        xr = torch.cat([x[1 : pad_lo + 1].flip(0), x, x.flip(0)[:pad_hi_r]], dim=0)
+        xr = torch.cat([xr[:, 1 : pad_lo + 1].flip(1), xr, xr.flip(1)[:, :pad_hi_c]], dim=1)
+        return _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
+                                 spectral_dtype=spectral_dtype, storage_dtype=storage_dtype)
+    return _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol)
+
+
+def _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol):
+    """Per-coset gather path with the folded rDFT basis (small frames)."""
+    h, w, c = x.shape
+    dev = x.device
+    stride = k // ov
+    h_pad, w_pad = h + 2 * k, w + 2 * k
+    analysis, synthesis, _ = _rdft2_basis(k)
+    n_rep = analysis.shape[0] // 2
+    w2f = np.outer(wf, wf).astype(np.float64)
+    w2i = np.outer(wi, wi).astype(np.float64)
+    ana_w = analysis.astype(np.float64) * w2f.reshape(1, -1)
+    ana3 = torch.as_tensor(np.concatenate(
+        [ana_w, np.full((1, k * k), 1.0 / (k * k))], axis=0).astype(np.float32).reshape(-1, k, k),
+        device=dev)
+    syn3 = torch.as_tensor((synthesis.astype(np.float64) * w2i.reshape(1, -1))
+                           .astype(np.float32).reshape(-1, k, k), device=dev)
+    a0 = torch.as_tensor(ana_w.sum(axis=1).astype(np.float32), device=dev)
+    mc = torch.as_tensor((w2f * w2i).astype(np.float32), device=dev)
+    sig2 = (sigmas * sigmas)[None, None, :, None]
+
+    acc = torch.zeros((h_pad, w_pad, c), dtype=_F32, device=dev)
+    for ry in range(ov):
+        n_ty = -(-(grid_h - ry) // ov)
+        row0 = (ry - ov) * stride
+        out_r0 = row0 + k
+        n_keep_r = min(n_ty * k, h_pad - out_r0)
+        for rx in range(ov):
+            n_tx = -(-(grid_w - rx) // ov)
+            col0 = (rx - ov) * stride
+            out_c0 = col0 + k
+            n_keep_c = min(n_tx * k, w_pad - out_c0)
+            rows = torch.as_tensor(_reflect_index(row0 + np.arange(n_ty * k), h), device=dev)
+            cols = torch.as_tensor(_reflect_index(col0 + np.arange(n_tx * k), w), device=dev)
+            tiles = x[rows][:, cols].reshape(n_ty, k, n_tx, k, c)
+            raw = torch.einsum('ruv,aubvc->abcr', ana3, tiles)
+            mean = raw[..., -1:]
+            spec = raw[..., :-1] - mean * a0
+            a_part = spec[..., :n_rep]
+            b_part = spec[..., n_rep:]
+            power = a_part * a_part + b_part * b_part + _EPS
+            gain = torch.clamp(power - sig2, min=0.0) / power
+            spec = torch.cat([a_part * gain, b_part * gain], dim=-1)
+            y = torch.einsum('ruv,abcr->aubvc', syn3, spec)
+            recon = (y + mean[..., 0][:, None, :, None, :] * mc[None, :, None, :, None]
+                     ).reshape(n_ty * k, n_tx * k, c)
+            acc[out_r0 : out_r0 + n_keep_r, out_c0 : out_c0 + n_keep_c] += \
+                recon[:n_keep_r, :n_keep_c]
+    mask = mrow[:, None] * mcol[None, :]
+    return acc[k : k + h, k : k + w] / (mask[k : k + h, k : k + w, None] + _EPS)
+
+
+__all__ = ['wiener_denoise']

@@ -1,0 +1,18 @@
+"""Pipeline layer: settings, camera registry and the batched processor."""
+
+from .camera_settings import CameraSettings, load_camera_settings_from_dir
+from .config import Debayer, ImageProcessingSettings, ToneMapper
+from .image_processor import ImageProcessor, ImageSizeMismatchError, build_pipeline_fn
+from .transform import ImageTransform
+
+__all__ = [
+    'CameraSettings',
+    'Debayer',
+    'ImageProcessingSettings',
+    'ImageProcessor',
+    'ImageSizeMismatchError',
+    'ImageTransform',
+    'ToneMapper',
+    'build_pipeline_fn',
+    'load_camera_settings_from_dir',
+]

@@ -1,0 +1,249 @@
+"""The pipeline orchestrator (counterpart of
+tpu_darktable/pipeline/image_processor.py:55-549).
+
+    decode12 -> WB -> RCD -> postprocess -> bounds/EMA -> normalize ->
+    Wiener(log LAB-L) -> bilateral -> metrics/EMA -> tonemap -> uint8
+
+The per-frame stages run as two Python loops over the batch, split by the
+batch-global bounds EMA, one frame at a time so that live memory stays one
+frame deep.  The EMA state (bounds (2,), metrics (5,)) stays on the device
+between batches: there is no host sync on the path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..ops import bilateral as _bilateral
+from ..ops import color as _color
+from ..ops import packed as _packed
+from ..ops import postprocess as _postprocess
+from ..ops import rcd as _rcd
+from ..ops import tonemap as _tonemap
+from ..ops import white_balance as _wb
+from ..ops import wiener as _wiener
+from ..ops.bayer import BayerPattern, PackedFormat
+from .camera_settings import CameraSettings
+from .config import Debayer, ImageProcessingSettings, ToneMapper
+from .transform import ImageTransform, transform
+from .util import lerp, normalize_image
+
+
+class ImageSizeMismatchError(Exception):
+    """Raised when the byte count does not match the camera geometry."""
+
+    def __init__(self, message, image_size, packed_format, padding):
+        super().__init__(message)
+        self.image_size = image_size
+        self.packed_format = packed_format
+        self.padding = padding
+
+
+def _check_ported(settings: ImageProcessingSettings) -> None:
+    if settings.debayer is not Debayer.rcd:
+        raise NotImplementedError(
+            f'debayer={settings.debayer.name} is not ported yet (ROADMAP Queue 1 #10); use rcd')
+    if settings.enable_laplacian:
+        raise NotImplementedError('the local Laplacian is not ported yet (ROADMAP Queue 1 #10)')
+    if settings.tone_mapping not in (ToneMapper.reinhard, ToneMapper.aces,
+                                     ToneMapper.adaptive_aces):
+        raise NotImplementedError(
+            f'tone_mapping={settings.tone_mapping.name} is not ported yet (ROADMAP Queue 1 #10)')
+
+
+def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, int],
+                      bayer_pattern: BayerPattern, packed_format: PackedFormat,
+                      has_white_balance: bool):
+    """Build the batched pipeline.
+
+    Returns fn(bytes_batch (B, n_bytes) uint8, wb (3,), bounds (2,),
+    metrics (5,), alpha 0-d) -> (uint8 (B, H, W, 3), bounds', metrics'),
+    all tensors on one device.
+    """
+    _check_ported(settings)
+    width, height = image_size
+    ids = packed_format is PackedFormat.Packed12_IDS
+    sdt = torch.float16 if settings.denoise_f16 else None
+    params = _tonemap.TonemapParameters(settings.tone_gamma, settings.tone_intensity,
+                                        settings.light_adapt, settings.vibrance)
+
+    def _sample_plane(rgb):
+        return rgb[::8, ::8]
+
+    def _front_one(frame_rows, wb_gains):
+        bayer = _packed.decode12_float(frame_rows, ids_format=ids)
+        if has_white_balance:
+            bayer = _wb.apply_white_balance(bayer, wb_gains, bayer_pattern)
+        rgb = _rcd.rcd_demosaic(bayer, bayer_pattern)
+        if settings.postprocess:
+            rgb = _postprocess.postprocess(
+                rgb, bayer_pattern, color_smoothing_passes=settings.color_smoothing_passes,
+                green_eq_global_enabled=True)
+        return rgb
+
+    # Each luminance stage extracts LAB L and writes it back.  When the
+    # stage input is known to be clipped (it came out of a preceding
+    # lab_modify_luminance, which ends in clip01) the unclipped LAB serves
+    # both sides; otherwise the clipped L shares the sRGB decode.
+    def _lab_and_lum(rgb, input_clipped: bool):
+        if input_clipped:
+            lab = _color.rgb_to_lab(rgb)
+            return lab, lab[..., 0]
+        return _color.rgb_to_lab_with_clipped_l(rgb)
+
+    def _denoise_one(rgb):
+        eps = 1e-4
+        lab, lum = _color.rgb_to_lab_with_clipped_l(rgb)  # normalize output: not clipped
+        log_lum = torch.log(torch.clamp(lum, min=eps))
+        den = _wiener.wiener_denoise(
+            log_lum[..., None], settings.denoise, tile_size=32,
+            overlap_factor=settings.denoise_overlap, spectral_dtype=sdt, storage_dtype=sdt,
+        )[..., 0]
+        return _color.lab_modify_luminance(lab, torch.exp(den + eps))
+
+    def _bilateral_one(rgb):
+        lab, lum = _lab_and_lum(rgb, input_clipped=settings.enable_denoise)
+        out = _bilateral.bilateral_process(lum, settings.bil_sigma_spatial,
+                                           settings.bil_sigma_luminance, settings.bilateral)
+        return _color.lab_modify_luminance(lab, out)
+
+    def _back_one(rgb, bounds):
+        rgb = normalize_image(rgb, bounds)
+        if settings.enable_denoise:
+            rgb = _denoise_one(rgb)
+        if settings.enable_bilateral:
+            rgb = _bilateral_one(rgb)
+        return rgb
+
+    def _tonemap_batch(rgb, metrics):
+        match settings.tone_mapping:
+            case ToneMapper.reinhard:
+                return _tonemap.reinhard_tonemap(rgb, metrics, params)
+            case ToneMapper.aces:
+                return _tonemap.aces_tonemap(rgb, params)
+            case ToneMapper.adaptive_aces:
+                return _tonemap.aces_tonemap(rgb, params, metrics)
+        raise AssertionError(f'Invalid tone mapping: {settings.tone_mapping}')
+
+    def fused(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
+        rows = bytes_batch.reshape(-1, height, (width * 3) // 2)
+        n = rows.shape[0]
+        rgb = torch.empty((n, height, width, 3), dtype=torch.float32, device=rows.device)
+        samples = []
+        for i in range(n):
+            rgb[i] = _front_one(rows[i], wb_gains)
+            samples.append(_sample_plane(rgb[i]))
+        bounds = lerp(bounds_in, _tonemap.compute_image_bounds(torch.stack(samples), stride=1),
+                      alpha)
+
+        if settings.enable_denoise or settings.enable_bilateral:
+            samples = []
+            for i in range(n):
+                rgb[i] = _back_one(rgb[i], bounds)
+                samples.append(_sample_plane(rgb[i]))
+            samples = torch.stack(samples)
+        else:
+            # normalize commutes with the strided sampling
+            samples = normalize_image(torch.stack(samples), bounds)
+            rgb = normalize_image(rgb, bounds)
+
+        metrics = lerp(metrics_in, _tonemap.compute_image_metrics(samples, stride=1), alpha)
+        return _tonemap_batch(rgb, metrics), bounds, metrics
+
+    return fused
+
+
+class ImageProcessor:
+    """Camera-geometry-bound processor with the EMA state on the device."""
+
+    def __init__(self, image_size: tuple[int, int], bayer_pattern: BayerPattern,
+                 packed_format: PackedFormat, settings: ImageProcessingSettings,
+                 device=None, white_balance: tuple[float, float, float] | None = None,
+                 transforms: ImageTransform | dict[str, ImageTransform] = ImageTransform.none,
+                 padding: int = 0):
+        self.device = resolve_device(device)
+        self.settings = settings
+        self.image_size = tuple(image_size)
+        self.bayer_pattern = bayer_pattern
+        self.packed_format = packed_format
+        self.transforms = transforms
+        self.padding = padding
+        self.bounds: torch.Tensor | None = None
+        self.metrics: torch.Tensor | None = None
+        self.white_balance = (
+            None if white_balance is None
+            else torch.as_tensor(white_balance, dtype=torch.float32, device=self.device)
+        )
+        self._fused = self._build()
+
+    def _build(self):
+        return build_pipeline_fn(self.settings, self.image_size, self.bayer_pattern,
+                                 self.packed_format, self.white_balance is not None)
+
+    @staticmethod
+    def from_camera_settings(camera_settings: CameraSettings, device=None) -> 'ImageProcessor':
+        return ImageProcessor(
+            camera_settings.image_size, camera_settings.bayer_pattern,
+            camera_settings.packed_format, camera_settings.image_processing, device=device,
+            white_balance=camera_settings.white_balance, transforms=camera_settings.transform,
+            padding=camera_settings.padding,
+        )
+
+    def update_settings(self, settings: ImageProcessingSettings) -> None:
+        if settings != self.settings:
+            self.settings = settings
+            self._fused = self._build()
+
+    @property
+    def expected_bytes(self) -> int:
+        width, height = self.image_size
+        return (width * height * 3) // 2 + self.padding
+
+    def _mismatch(self, message: str) -> ImageSizeMismatchError:
+        return ImageSizeMismatchError(message, image_size=self.image_size,
+                                      packed_format=self.packed_format, padding=self.padding)
+
+    def _as_bytes(self, data) -> torch.Tensor:
+        if isinstance(data, np.ndarray):
+            data = torch.from_numpy(np.ascontiguousarray(data))
+        return data.to(device=self.device, dtype=torch.uint8)
+
+    def process_batch(self, bytes_batch) -> torch.Tensor:
+        """Run the pipeline on a (B, n_bytes) uint8 batch (numpy or tensor),
+        updating the EMA state.  Returns (B, H, W, 3) uint8 on the device."""
+        bytes_batch = self._as_bytes(bytes_batch)
+        if bytes_batch.ndim == 1:
+            bytes_batch = bytes_batch[None]
+        if bytes_batch.shape[-1] != self.expected_bytes:
+            raise self._mismatch(f'Image size mismatch: expected {self.expected_bytes} bytes, '
+                                 f'got {bytes_batch.shape[-1]} bytes.')
+        if self.padding > 0:
+            bytes_batch = bytes_batch[:, : -self.padding]
+        first = self.bounds is None
+        f32 = dict(dtype=torch.float32, device=self.device)
+        alpha = torch.tensor(1.0 if first else self.settings.moving_average, **f32)
+        bounds_in = torch.zeros(2, **f32) if first else self.bounds
+        metrics_in = torch.zeros(5, **f32) if first else self.metrics
+        wb = self.white_balance if self.white_balance is not None else torch.ones(3, **f32)
+        out, self.bounds, self.metrics = self._fused(bytes_batch, wb, bounds_in, metrics_in, alpha)
+        return out
+
+    def transform(self, image: torch.Tensor, image_name: str) -> torch.Tensor:
+        if isinstance(self.transforms, dict):
+            return transform(image, self.transforms[image_name])
+        return transform(image, self.transforms)
+
+    def process_image_set(self, image_set_bytes: dict) -> dict:
+        """Process a named set of same-geometry frames as one batch."""
+        names = list(image_set_bytes)
+        batch = torch.stack([self._as_bytes(b) for b in image_set_bytes.values()])
+        out = self.process_batch(batch)
+        return {name: self.transform(out[i], name) for i, name in enumerate(names)}
+
+    def process(self, data, image_name: str) -> torch.Tensor:
+        return self.process_image_set({image_name: data})[image_name]
+
+
+__all__ = ['ImageProcessor', 'ImageSizeMismatchError', 'build_pipeline_fn']

@@ -1,0 +1,44 @@
+"""Per-camera orientation transforms (counterpart of
+tpu_darktable/pipeline/transform.py)."""
+
+from __future__ import annotations
+
+from enum import Enum
+
+import torch
+
+
+class ImageTransform(Enum):
+    none = 0
+    rotate_90 = 1
+    rotate_180 = 2
+    rotate_270 = 3
+    transpose = 4
+    flip_horiz = 5
+    flip_vert = 6
+    transverse = 7
+
+
+def transform(image: torch.Tensor, tf: ImageTransform) -> torch.Tensor:
+    """Apply an orientation transform over the leading (H, W) axes."""
+    match tf:
+        case ImageTransform.none:
+            return image
+        case ImageTransform.rotate_90:
+            return torch.rot90(image, 1, (0, 1))
+        case ImageTransform.rotate_180:
+            return torch.rot90(image, 2, (0, 1))
+        case ImageTransform.rotate_270:
+            return torch.rot90(image, 3, (0, 1))
+        case ImageTransform.flip_horiz:
+            return torch.flip(image, (1,))
+        case ImageTransform.flip_vert:
+            return torch.flip(image, (0,))
+        case ImageTransform.transverse:
+            return torch.flip(image, (0, 1))
+        case ImageTransform.transpose:
+            return image.transpose(0, 1)
+    raise ValueError(f'Invalid transform: {tf}')
+
+
+__all__ = ['ImageTransform', 'transform']

@@ -1,0 +1,16 @@
+"""Small pipeline utilities (counterpart of tpu_darktable/pipeline/util.py)."""
+
+from __future__ import annotations
+
+
+def lerp(a, b, t):
+    """a + (b - a) * t."""
+    return a + (b - a) * t
+
+
+def normalize_image(rgb_raw, bounds):
+    """(x - lo) / (hi - lo)."""
+    return (rgb_raw - bounds[0]) / (bounds[1] - bounds[0])
+
+
+__all__ = ['lerp', 'normalize_image']
