@@ -6,28 +6,39 @@ Phases (any failure raises and the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
      build every kernel of csrc/ (one nvcc each, in parallel).
   2. each hand kernel against its plain PyTorch version on the card, at the
-     FULL path's shapes (4096x3000): max abs error against the stated
-     tolerance, kernel / plain time by CUDA events, and the bound (the
-     least time the card could take: bytes over 3.35 TB/s or operations
-     over 33.5 T/s, whichever is larger).
+     shapes of its path (4096x3000; the general bilateral grid of sigma_s 3,
+     (6, 1001, 1366)): max abs error against the stated tolerance, kernel /
+     plain time by CUDA events, the time of one PyTorch call computing the
+     same function where there is one (conv3d for the grid blur), and the
+     bound (the least time the card could take: bytes over 3.35 TB/s or
+     operations over 33.5 T/s, whichever is larger).
   3. the RCD golden cases of tests/goldens/pipeline_goldens.npz on the card
      (1 uint8 count).
   4. one FULL frame at 1024x768 on the card against the same on the CPU
      (the plain versions): 1 count.
   5. the graded FULL configuration at full width through ImageProcessor:
      4096x3000 RGGB Packed12 with white balance, 3 batches of 4 synthetic
-     frames; the launch counts are zeroed just before and read just after,
-     and each kernel must have launched exactly BATCH * N_BATCHES = 12
-     times: the path runs each kernel once a frame (RCD interior, the
-     3-pass colour smoothing and the bilateral detail term each in one
-     wrapper call), so a frame that skipped one would show here.  Prints ms per frame,
-     frames per second, per-stage ms and peak device memory.
+     frames; the launch counts are zeroed just before and read just after:
+     the path runs each of its three kernels once a frame (RCD interior,
+     the 3-pass colour smoothing and the bilateral detail term each in one
+     wrapper call), so each must show exactly BATCH * N_BATCHES = 12, and
+     the other kernels 0.  Prints ms per frame, frames per second,
+     per-stage ms and peak device memory.
+  6. BASELINE config 3: wavelet then NLM denoise of 8 frames of 4096x3000
+     RGB from the FULL front end, a warm-up pass then a timed pass with
+     exactly 8 launches of each kernel; finite output with a lower std than
+     its input.  Prints ms per frame, frames per second and peak memory.
+  7. FULL with bil_sigma_spatial = 3, the general bilateral path, through
+     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches
+     and no bilateral_band; card vs CPU at 1024x768 (1 count); one
+     bilateral_denoise of a 12 MP plane (2 grid_blur_xyz launches).
 Then one JSON line with the kernels, and the result JSON as the last line.
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,6 +55,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12 / 2
 W, H = 4096, 3000
 BATCH, N_BATCHES = 4, 3
+# FULL runs each of these once a frame and none of the other kernels.
+FULL_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'bilateral_band')
 WB = (1.2, 1.0, 1.1)
 REPO = Path(__file__).resolve().parent
 
@@ -119,13 +132,19 @@ def phase_card_and_build():
 # ---------------------------------------------------------------- phase 2
 
 def phase_kernels(dev):
-    """Each kernel vs its plain version at the FULL path's shapes."""
+    """Each kernel vs its plain version at the shapes of its path."""
     from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral_band_plain
     from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
+    from tpu_darktable_torch.kernels.grid_blur import (W_DERIV, W_GAUSS, grid_blur_xyz,
+                                                       grid_blur_xyz_plain)
+    from tpu_darktable_torch.kernels.nlm import nlm_core, nlm_core_plain
     from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
-    from tpu_darktable_torch.ops import color, packed, rcd, white_balance
+    from tpu_darktable_torch.kernels.wavelet import wavelet_core, wavelet_core_plain
+    from tpu_darktable_torch.ops import bilateral, color, packed, postprocess, rcd, tonemap
+    from tpu_darktable_torch.ops import white_balance
     from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
     from tpu_darktable_torch.ops.bilateral import compute_grid_size
+    from tpu_darktable_torch.pipeline.util import normalize_image
 
     frame = synthetic_frames(W, H, 1, seed=3)[0].to(dev)
     mosaic = packed.decode12_float(frame.reshape(H, W * 3 // 2))
@@ -140,19 +159,26 @@ def phase_kernels(dev):
     px = H * W
     out = []
 
-    def record(name, source, replaces, k_fn, p_fn, err_fn, tol, n_bytes, n_ops):
-        k_out, p_out = k_fn(), p_fn()
-        torch.cuda.synchronize()
-        err = err_fn(k_out, p_out)
+    def record(name, source, replaces, k_fn, p_fn, err_fn, tol, n_bytes, n_ops,
+               also=(), library=None):
+        """`also`: further (kernel, plain) pairs held to the same tolerance;
+        `library`: one PyTorch call computing the same function, timed only."""
+        err = 0.0
+        for kf, pf in ((k_fn, p_fn), *also):
+            k_out, p_out = kf(), pf()
+            torch.cuda.synchronize()
+            err = max(err, err_fn(k_out, p_out))
         log(f'{name}: max_abs_err {err:.3g} (tolerance {tol:g})')
         if not err <= tol:
             raise AssertionError(f'{name} disagrees with its plain version: {err} > {tol}')
         ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn, iters=5)
+        library_ms = None if library is None else cuda_ms(library)
         b_ms, b_by = bound(n_bytes, n_ops)
-        log(f'{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})')
+        log(f'{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms} ms, '
+            f'bound {b_ms:.4f} ms ({b_by})')
         out.append(dict(name=name, route='cuda', source=source, replaces=replaces,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None))
+                        bound_by=b_by, library_ms=library_ms))
 
     r = RING
     # ~200 float ops a pixel through the 12 steps (tallied from the source);
@@ -180,6 +206,55 @@ def phase_kernels(dev):
            lambda: bilateral_band_plain(lum, s=2, gz=gz, sigma_r=0.2),
            lambda a, b: (a - b).abs().max().item(), 1e-5,
            4 * px + 4 * px, (27 + 45 + 22) * px)
+
+    # The denoise path's input: the FULL front end, normalized (config 3).
+    rgb_n = postprocess.postprocess(rgb, BayerPattern.RGGB, 3, True)
+    rgb_n = normalize_image(rgb_n, tonemap.compute_image_bounds(rgb_n))
+    planes = rgb_n.permute(2, 0, 1).contiguous()
+    inv_h2 = 1.0 / (0.05 * 0.05 * 9 * 3)
+    # Per pixel and offset (49 at sr=3): d2 3C = 9, the separable 3x3 box
+    # sum 6, the weight 3 (negate, multiply, exp), acc and wsum 2C + 1 = 7:
+    # 25; plus C divides.  Three planes read once and written once.
+    record('nlm_core', 'tpu_darktable_torch/csrc/nlm.cu', 'tpu_darktable/kernels/nlm.py:87',
+           lambda: nlm_core(planes, inv_h2), lambda: nlm_core_plain(planes, inv_h2),
+           lambda a, b: (a - b).abs().max().item(), 1e-5,
+           24 * px, (49 * 25 + 3) * px)
+    thr = torch.full((3,), 3.0 * 0.05, device=dev)
+    # Per level, pixel and channel: two 5-tap blurs (9 ops each), the
+    # detail 1, the shrink 5 (abs, subtract, max, sign, multiply), the
+    # residual 1: 25, x 4 levels + the final add, x 3 channels.
+    record('wavelet_core', 'tpu_darktable_torch/csrc/wavelet.cu',
+           'tpu_darktable/kernels/wavelet.py:117',
+           lambda: wavelet_core(planes, thr, levels=4),
+           lambda: wavelet_core_plain(planes, thr, levels=4),
+           lambda a, b: (a - b).abs().max().item(), 1e-6,
+           24 * px, 3 * (4 * 25 + 1) * px)
+    # The general path's grid: sigma_s = 3 does not divide 4096.
+    gx3, gy3, gz3 = compute_grid_size(W, H, 3.0, 0.2)
+    op = bilateral._windowed(H, W, gx3, gy3, 3.0, dev)
+    g_z = bilateral._z_coords(lum, 0.2, gz3)[0]
+    grid = torch.stack([op.splat(torch.clamp(1.0 - torch.abs(g_z - z), min=0.0) / 9.0)
+                        for z in range(gz3)])
+    log(f'general-path grid at sigma_s 3: {tuple(grid.shape)}')
+    cells = grid.numel()
+    # The same function as one cuDNN call: a 5x5x5 outer-product kernel,
+    # zero padding 2.  TF32 off, so cuDNN convolves in float32.
+    torch.backends.cudnn.allow_tf32 = False
+    w3 = (torch.tensor(W_DERIV)[:, None, None] * torch.tensor(W_GAUSS)[None, :, None]
+          * torch.tensor(W_GAUSS)[None, None, :]).to(dev)[None, None]
+    conv = lambda: torch.nn.functional.conv3d(grid[None, None], w3, padding=2)[0, 0]
+    log('library yardstick of grid_blur_xyz: one conv3d, torch.backends.cudnn.allow_tf32 = False; '
+        f'max |diff| to the kernel {(grid_blur_xyz(grid) - conv()).abs().max().item():.3g}')
+    # Per cell: x and y 5 taps (9 ops each), z derivative 4 taps (7 ops);
+    # the grid read once and written once.
+    record('grid_blur_xyz', 'tpu_darktable_torch/csrc/grid_blur.cu',
+           'tpu_darktable/kernels/grid_blur.py:62',
+           lambda: grid_blur_xyz(grid), lambda: grid_blur_xyz_plain(grid),
+           lambda a, b: (a - b).abs().max().item(), 1e-6,
+           8 * cells, 25 * cells,
+           also=[(lambda: grid_blur_xyz(grid, z_mode='gaussian'),
+                  lambda: grid_blur_xyz_plain(grid, z_mode='gaussian'))],
+           library=conv)
     return out
 
 
@@ -228,7 +303,7 @@ def phase_goldens(dev):
 
 # ---------------------------------------------------------------- phase 4
 
-def phase_card_vs_cpu(dev):
+def phase_card_vs_cpu(dev, settings, label='FULL'):
     import tpu_darktable_torch as tt
 
     w, h = 1024, 768
@@ -236,10 +311,11 @@ def phase_card_vs_cpu(dev):
     outs = []
     for d in (dev, torch.device('cpu')):
         proc = tt.ImageProcessor((w, h), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
-                                 full_settings(), device=d, white_balance=WB)
+                                 settings, device=d, white_balance=WB)
         outs.append(proc.process_batch(frames).cpu().numpy().astype(int))
     d = int(np.abs(outs[0] - outs[1]).max())
-    log(f'card vs cpu at {w}x{h}: max |diff| {d} count(s), {(outs[0] != outs[1]).mean():.2e} of values differ')
+    log(f'{label} card vs cpu at {w}x{h}: max |diff| {d} count(s), '
+        f'{(outs[0] != outs[1]).mean():.2e} of values differ')
     if d > 1:
         raise AssertionError(f'card and CPU differ by {d} counts')
 
@@ -264,12 +340,14 @@ def phase_full(dev):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30  # before the checks allocate
 
     log(f'FULL launches: {launches}')
     for name, n in launches.items():
-        if n != BATCH * N_BATCHES:
-            raise AssertionError(f'kernel {name} launched {n} times on the main path, '
-                                 f'expected one a frame ({BATCH * N_BATCHES})')
+        want = BATCH * N_BATCHES if name in FULL_KERNELS else 0
+        if n != want:
+            raise AssertionError(f'kernel {name} launched {n} times on the FULL path, '
+                                 f'expected {want}')
     if tuple(out.shape) != (BATCH, H, W, 3) or out.dtype != torch.uint8:
         raise AssertionError(f'FULL output {tuple(out.shape)} {out.dtype}')
     if not (torch.isfinite(proc.bounds).all() and torch.isfinite(proc.metrics).all()):
@@ -279,7 +357,7 @@ def phase_full(dev):
     steady = sum(times[1:]) / (len(times) - 1)
     log(f'FULL {W}x{H} batch {BATCH}: batch seconds {[round(t, 4) for t in times]}; '
         f'{steady / BATCH * 1e3:.2f} ms/frame, {BATCH / steady:.2f} frames/s (batches 2..{N_BATCHES}); '
-        f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        f'peak device memory {peak_gib:.2f} GiB')
     log(f'FULL bounds {proc.bounds.tolist()} metrics {proc.metrics.tolist()}')
     stage_ms(dev, batches[0][0])
     return launches
@@ -335,6 +413,120 @@ def stage_ms(dev, frame_bytes):
         + f'; sum without the strips {sum(res.values()) - res[parts[2][0]]:.3f}')
 
 
+# ---------------------------------------------------------------- phase 6
+
+def front_end(dev, n, seed):
+    """n frames of demosaiced RGB as FULL hands them to its denoise stage:
+    decode, WB, RCD, postprocess, then normalize by the set's bounds."""
+    from tpu_darktable_torch.ops import packed, postprocess, rcd, tonemap, white_balance
+    from tpu_darktable_torch.ops.bayer import BayerPattern
+    from tpu_darktable_torch.pipeline.util import normalize_image
+
+    frames = synthetic_frames(W, H, n, seed).to(dev)
+    wb = torch.tensor(WB, device=dev)
+    rgb = torch.empty((n, H, W, 3), dtype=torch.float32, device=dev)
+    for i in range(n):
+        mosaic = white_balance.apply_white_balance(
+            packed.decode12_float(frames[i].reshape(H, W * 3 // 2)), wb, BayerPattern.RGGB)
+        rgb[i] = postprocess.postprocess(rcd.rcd_demosaic(mosaic, BayerPattern.RGGB),
+                                         BayerPattern.RGGB, 3, True)
+    return normalize_image(rgb, tonemap.compute_image_bounds(rgb))
+
+
+def phase_denoise(dev):
+    """BASELINE config 3: wavelet then NLM denoise (sigma 0.05) on 8 frames
+    of 4096x3000 demosaiced RGB, one frame at a time."""
+    from tpu_darktable_torch import denoise, kernels
+
+    n = 8
+    rgb = front_end(dev, n, seed=300)
+    out = torch.empty_like(rgb)
+
+    def one_pass():
+        for i in range(n):
+            out[i] = denoise.nlm_denoise(denoise.wavelet_denoise(rgb[i], 0.05), 0.05)
+
+    one_pass()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    one_pass()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30  # before the checks allocate
+    log(f'config 3 launches: {launches}')
+    if launches['wavelet_core'] != n or launches['nlm_core'] != n:
+        raise AssertionError(f'config 3 launched wavelet_core {launches["wavelet_core"]} and '
+                             f'nlm_core {launches["nlm_core"]} times, expected {n} each')
+    if not torch.isfinite(out).all():
+        raise AssertionError('config 3 output is not finite')
+    s_in, s_out = rgb.std().item(), out.std().item()
+    if not s_out < s_in:
+        raise AssertionError(f'config 3 output std {s_out} is not below the input std {s_in}')
+    log(f'config 3 (wavelet + NLM) {W}x{H}x3 batch {n}: {seconds / n * 1e3:.2f} ms/frame, '
+        f'{n / seconds:.2f} frames/s; std {s_in:.5f} -> {s_out:.5f}; '
+        f'peak device memory {peak_gib:.2f} GiB')
+    return launches
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_general_bilateral(dev):
+    """FULL with bil_sigma_spatial = 3 (3 does not divide 4096): the general
+    bilateral path through ImageProcessor, 2 batches of 4; then card vs
+    CPU at 1024x768, and one bilateral_denoise of a 12 MP plane."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import kernels
+    from tpu_darktable_torch.ops import bilateral, color
+
+    settings = dataclasses.replace(full_settings(), bil_sigma_spatial=3.0)
+    proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             settings, device=dev, white_balance=WB)
+    n_batches = 2
+    batches = [synthetic_frames(W, H, BATCH, seed=400 + b).to(dev) for b in range(n_batches)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = proc.process_batch(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.launches)
+    log(f'general bilateral launches: {launches}')
+    n = BATCH * n_batches
+    if launches['grid_blur_xyz'] != n or launches['bilateral_band'] != 0:
+        raise AssertionError(f'general bilateral launched grid_blur_xyz {launches["grid_blur_xyz"]} '
+                             f'(expected {n}) and bilateral_band {launches["bilateral_band"]} '
+                             '(expected 0) times')
+    if tuple(out.shape) != (BATCH, H, W, 3) or out.float().std().item() < 1.0:
+        raise AssertionError(f'general bilateral output {tuple(out.shape)} is wrong or flat')
+    log(f'FULL with sigma_s 3 (general bilateral) {W}x{H} batch {BATCH}: batch seconds '
+        f'{[round(t, 4) for t in times]}; {times[-1] / BATCH * 1e3:.2f} ms/frame (batch 2)')
+
+    phase_card_vs_cpu(dev, settings, label='general bilateral')
+
+    lum = color.compute_luminance(front_end(dev, 1, seed=500)[0])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    den = bilateral.bilateral_denoise(lum, 3.0, 0.2, 1.0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if kernels.launches['grid_blur_xyz'] != 2 or not torch.isfinite(den).all():
+        raise AssertionError(f'bilateral_denoise: {kernels.launches["grid_blur_xyz"]} grid blur '
+                             'launches (expected 2) or non-finite output')
+    log(f'bilateral_denoise of a {W}x{H} plane: {ms:.2f} ms (first call), std '
+        f'{lum.std().item():.5f} -> {den.std().item():.5f}')
+    stage = {f'sigma_s {s:g}': cuda_ms(lambda: bilateral.bilateral_process(lum, s, 0.2, 0.4),
+                                       iters=3, warmup=1)
+             for s in (3.0, 2.0)}
+    log(f'bilateral_process alone on a {W}x{H} plane, ms: {stage} '
+        '(3: general path with grid_blur_xyz; 2: fast path, bilateral_band)')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs one GPU',
@@ -346,8 +538,12 @@ def main():
     smi = phase_card_and_build()
     kern = phase_kernels(dev)
     phase_goldens(dev)
-    phase_card_vs_cpu(dev)
+    phase_card_vs_cpu(dev, full_settings())
     launches = phase_full(dev)
+    # each kernel's count from the run of its own path
+    launches.update({k: v for k, v in phase_denoise(dev).items()
+                     if k in ('wavelet_core', 'nlm_core')})
+    launches['grid_blur_xyz'] = phase_general_bilateral(dev)['grid_blur_xyz']
     for k in kern:
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',

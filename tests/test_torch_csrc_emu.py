@@ -22,7 +22,10 @@ import torch
 from tpu_darktable_torch.kernels._build import CSRC
 from tpu_darktable_torch.kernels.bilateral_band import bilateral_band_plain
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
+from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
+from tpu_darktable_torch.kernels.nlm import nlm_core_plain
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
+from tpu_darktable_torch.kernels.wavelet import wavelet_core_plain
 from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
 
 torch.set_num_threads(1)
@@ -45,7 +48,7 @@ static dim3 threadIdx(0,0,0), blockIdx(0,0,0), blockDim(1,1,1), gridDim(1,1,1);
 static float* emu_smem = nullptr;
 inline void __syncthreads() {}
 typedef void* cudaStream_t;
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaErrorInvalidValue = 1 };
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 // Kernels with shared memory run one thread a block (their loops stride by
@@ -131,3 +134,47 @@ def test_bilateral_band_source_on_host(emu_lib, rng, h, w, s, gz, sr):
     assert fn(_p(lum), _p(out), _p(ga), _p(gb), h, w, s, gz, sr, None) == 0
     ref = bilateral_band_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr)
     np.testing.assert_array_equal(out, ref.numpy())
+
+
+@pytest.mark.parametrize('shape,z_mode', [((6, 70, 45), 'derivative'), ((6, 70, 45), 'gaussian'),
+                                          ((3, 33, 97), 'derivative'), ((9, 40, 64), 'gaussian')])
+def test_grid_blur_source_on_host(emu_lib, rng, shape, z_mode):
+    """Ragged tiles each way, gz below and above the 5-slab ring: bit-exact."""
+    grid = (rng.random(shape) - 0.3).astype(np.float32)
+    out = np.zeros_like(grid)
+    fn = emu_lib['grid_blur'].grid_blur_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    assert fn(_p(grid), _p(out), *shape, int(z_mode == 'gaussian'), None) == 0
+    ref = grid_blur_xyz_plain(torch.from_numpy(grid), z_mode=z_mode)
+    np.testing.assert_array_equal(out, ref.numpy())
+
+
+@pytest.mark.parametrize('shape,levels', [((3, 70, 96), 4), ((2, 33, 40), 3), ((1, 40, 150), 5),
+                                          ((1, 20, 30), 6), ((1, 9, 7), 1)])
+def test_wavelet_source_on_host(emu_lib, rng, shape, levels):
+    """The shared-memory cascade (levels <= 4) and the deeper HBM passes,
+    against the plain version: bit-exact."""
+    x = rng.random(shape).astype(np.float32)
+    thr = np.array([0.15, 0.1, 0.2][: shape[0]], np.float32)
+    out = np.zeros_like(x)
+    cur, tmp = np.zeros_like(x), np.zeros_like(x)
+    fn = emu_lib['wavelet'].wavelet_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    assert fn(_p(x), _p(thr), _p(out), _p(cur), _p(tmp), *shape, levels, None) == 0
+    ref = wavelet_core_plain(torch.from_numpy(x), torch.from_numpy(thr), levels=levels)
+    np.testing.assert_array_equal(out, ref.numpy())
+
+
+@pytest.mark.parametrize('shape,sr,pr', [((3, 40, 48), 3, 1), ((1, 37, 70), 2, 2),
+                                         ((2, 20, 33), 1, 1)])
+def test_nlm_source_on_host(emu_lib, rng, shape, sr, pr):
+    """Against the plain version: atol 1e-6 (libm expf against torch.exp;
+    everything else sums in the same order)."""
+    x = rng.random(shape).astype(np.float32)
+    inv_h2 = 1.0 / (0.1 * 0.1 * (2 * pr + 1) ** 2 * shape[0])
+    out = np.zeros_like(x)
+    fn = emu_lib['nlm'].nlm_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    assert fn(_p(x), _p(out), *shape, sr, pr, inv_h2, None) == 0
+    ref = nlm_core_plain(torch.from_numpy(x), inv_h2, search_radius=sr, patch_radius=pr)
+    assert np.abs(out - ref.numpy()).max() <= 1e-6

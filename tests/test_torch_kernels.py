@@ -19,7 +19,10 @@ from tpu_darktable.ops.bayer import BayerPattern as JPattern
 from tpu_darktable_torch import kernels
 from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral_band_plain
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
+from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz
+from tpu_darktable_torch.kernels.nlm import nlm_core
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
+from tpu_darktable_torch.kernels.wavelet import wavelet_core
 from tpu_darktable_torch.ops import bilateral as tbil
 from tpu_darktable_torch.ops import rcd as trcd
 from tpu_darktable_torch.ops.bayer import BayerPattern as TPattern, site_parities
@@ -117,9 +120,13 @@ def test_bilateral_plain_vs_band_kernel_interpret(rng):
 
 
 def test_bilateral_general_path_not_ported(rng):
-    lum = torch.from_numpy(rng.random((48, 64)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        tbil.bilateral_process(lum, 3.7, 0.13, 0.4)
+    """The general path (sigma_s 3.7 over a 64-px width), which raised
+    before the grid blur was ported, now runs and agrees with the JAX
+    package: atol 1e-5."""
+    lum = rng.random((48, 64)).astype(np.float32)
+    ref = np.asarray(jbil.bilateral_process(jnp.asarray(lum), 3.7, 0.13, 0.4))
+    out = tbil.bilateral_process(_t(lum), 3.7, 0.13, 0.4).numpy()
+    assert np.abs(out - ref).max() <= 1e-5
 
 
 def test_cpu_runs_plain_versions_and_counts_nothing(rng):
@@ -130,7 +137,11 @@ def test_cpu_runs_plain_versions_and_counts_nothing(rng):
     rcd_interior(x, r_par=(0, 0), b_par=(1, 1))
     color_smooth_diffs(torch.stack([x, x]), x, n_passes=2)
     bilateral_band(x, s=2, gz=6, sigma_r=0.2)
-    assert kernels.launches == {'rcd_interior': 0, 'color_smooth_diffs': 0, 'bilateral_band': 0}
+    grid_blur_xyz(torch.stack([x] * 6))
+    wavelet_core(x[None], torch.tensor([0.1]), levels=4)
+    nlm_core(x[None], 10.0)
+    assert kernels.launches == {'rcd_interior': 0, 'color_smooth_diffs': 0, 'bilateral_band': 0,
+                                'grid_blur_xyz': 0, 'wavelet_core': 0, 'nlm_core': 0}
 
 
 @pytest.mark.cuda

@@ -191,6 +191,9 @@ def test_port_imports_without_jax():
         "import tpu_darktable_torch, tpu_darktable_torch.convert\n"
         "import tpu_darktable_torch.kernels.rcd_interior, tpu_darktable_torch.kernels._build\n"
         "import tpu_darktable_torch.kernels.color_smooth, tpu_darktable_torch.kernels.bilateral_band\n"
+        "import tpu_darktable_torch.kernels.grid_blur, tpu_darktable_torch.kernels.wavelet\n"
+        "import tpu_darktable_torch.kernels.nlm, tpu_darktable_torch.denoise\n"
+        "import tpu_darktable_torch.local_contrast\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,

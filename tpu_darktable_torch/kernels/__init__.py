@@ -13,6 +13,9 @@ launches: dict[str, int] = {
     'rcd_interior': 0,
     'color_smooth_diffs': 0,
     'bilateral_band': 0,
+    'grid_blur_xyz': 0,
+    'wavelet_core': 0,
+    'nlm_core': 0,
 }
 
 

@@ -24,6 +24,9 @@ SOURCES = {
     'rcd_interior': 'rcd_interior.cu',
     'color_smooth_diffs': 'color_smooth.cu',
     'bilateral_band': 'bilateral_band.cu',
+    'grid_blur_xyz': 'grid_blur.cu',
+    'wavelet_core': 'wavelet.cu',
+    'nlm_core': 'nlm.cu',
 }
 # --fmad=false: no a*b+c contraction, so the kernels round like their plain
 # versions.  Never --use_fast_math: pow/exp/division must stay IEEE.

@@ -22,9 +22,7 @@ import ctypes
 import torch
 
 from . import launches
-
-_W_GAUSS = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
-_W_DERIV = (-2.0 / 16.0, -4.0 / 16.0, 0.0, 4.0 / 16.0, 2.0 / 16.0)
+from .grid_blur import grid_blur_xyz_plain
 
 
 def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> torch.Tensor:
@@ -59,21 +57,6 @@ def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> tor
     return out
 
 
-def _blur5(grid: torch.Tensor, axis: int, weights) -> torch.Tensor:
-    """5-tap correlation along `axis` with zero boundary (truncated taps)."""
-    pads = [0, 0] * grid.ndim
-    pads[2 * (grid.ndim - 1 - axis)] = 2
-    pads[2 * (grid.ndim - 1 - axis) + 1] = 2
-    p = torch.nn.functional.pad(grid, pads)
-    n = grid.shape[axis]
-    out = 0.0
-    for t, wt in enumerate(weights):
-        if wt == 0.0:
-            continue
-        out = out + wt * p.narrow(axis, t, n)
-    return out
-
-
 def _splat_axis(img: torch.Tensor, axis: int, n_cells: int, s: int) -> torch.Tensor:
     """Tent splat along `axis` by s strided slices: phase m of cell c gets
     weight 1 - m/s, phase m of cell c - 1 gets m/s."""
@@ -101,9 +84,7 @@ def bilateral_band_plain(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) 
         wz = torch.clamp(1.0 - torch.abs(g_z - z), min=0.0)
         slabs.append(_splat_axis(_splat_axis(wz * contrib, 1, gx, s), 0, gy, s))
     grid = torch.stack(slabs)
-    grid = _blur5(grid, 2, _W_GAUSS)
-    grid = _blur5(grid, 1, _W_GAUSS)
-    grid = _blur5(grid, 0, _W_DERIV)
+    grid = grid_blur_xyz_plain(grid, z_mode='derivative')
 
     ib_z = torch.clamp(g_z.to(torch.int32), max=gz - 2)
     frac_z = g_z - ib_z.to(torch.float32)

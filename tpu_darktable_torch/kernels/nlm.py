@@ -1,0 +1,90 @@
+"""Non-local means: wrapper of csrc/nlm.cu and its plain version.
+
+Replaces the TPU kernel tpu_darktable/kernels/nlm.py:nlm_core: for each of
+the (2sr+1)^2 search offsets, the squared difference between the image and
+its edge-clamped shift summed over channels, zero outside the image,
+box-summed over the (2pr+1)^2 patch, weighted by exp(-dist * inv_h2) and
+accumulated with the shifted image; out = acc / wsum.
+
+On the H100 the search is bound by its ~26 float ops a pixel and offset
+(~1.3k a pixel at sr=3, pr=1, C=3), not by its 8C bytes a pixel.  The
+kernel keeps a tile, its sr + pr halo and the tile's accumulators in
+shared memory through the whole offset loop, so the image crosses HBM
+once each way instead of once per offset.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import launches
+
+
+def nlm_core(planes: torch.Tensor, inv_h2: float, *, search_radius: int = 3,
+             patch_radius: int = 1) -> torch.Tensor:
+    """(C, H, W) float32 planes and inv_h2 = 1 / (h^2 (2pr+1)^2 C) ->
+    (C, H, W) float32 denoised planes."""
+    if planes.dtype != torch.float32 or planes.ndim != 3:
+        raise RuntimeError(f'planes must be (C, H, W) float32, got {planes.dtype} {tuple(planes.shape)}')
+    if not planes.is_contiguous():
+        raise RuntimeError('planes must be contiguous')
+    if search_radius < 0 or patch_radius < 0:
+        raise ValueError(f'radii must be >= 0, got {search_radius}, {patch_radius}')
+    if planes.device.type == 'cpu':
+        return nlm_core_plain(planes, inv_h2, search_radius=search_radius,
+                              patch_radius=patch_radius)
+    if not planes.is_cuda:
+        raise RuntimeError(f'nlm_core: unsupported device {planes.device}')
+    from ._build import check, load
+
+    fn = load('nlm_core').nlm_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    c, h, w = planes.shape
+    out = torch.empty_like(planes)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(fn(planes.data_ptr(), out.data_ptr(), c, h, w, search_radius, patch_radius,
+                 float(inv_h2), stream), 'nlm_core')
+    launches['nlm_core'] += 1
+    return out
+
+
+def nlm_core_plain(planes: torch.Tensor, inv_h2: float, *, search_radius: int = 3,
+                   patch_radius: int = 1) -> torch.Tensor:
+    """Plain PyTorch version: the offset loop of the JAX package's XLA path
+    (tpu_darktable/ops/nlm.py nlm_denoise), on channel planes."""
+    c, h, w = planes.shape
+    sr, pr = search_radius, patch_radius
+    dev = planes.device
+    rows = torch.clamp(torch.arange(-sr, h + sr, device=dev), 0, h - 1)
+    cols = torch.clamp(torch.arange(-sr, w + sr, device=dev), 0, w - 1)
+    xp = planes.index_select(1, rows).index_select(2, cols)
+    n = 2 * sr + 1
+    acc = torch.zeros_like(planes)
+    wsum = torch.zeros((h, w), dtype=planes.dtype, device=dev)
+    for dy in range(n):
+        for dx in range(n):
+            shifted = xp[:, dy:dy + h, dx:dx + w]
+            diff = planes - shifted
+            d2 = 0.0
+            for ch in range(c):
+                d2 = d2 + diff[ch] * diff[ch]
+            # box sum with zero fill: rows first, then columns
+            p = F.pad(d2, (pr, pr, pr, pr))
+            rsum = 0.0
+            for t in range(2 * pr + 1):
+                rsum = rsum + p[t:t + h]
+            dist = 0.0
+            for t in range(2 * pr + 1):
+                dist = dist + rsum[:, t:t + w]
+            wgt = torch.exp(-dist * inv_h2)
+            acc = acc + wgt * shifted
+            wsum = wsum + wgt
+    return acc / wsum
+
+
+__all__ = ['nlm_core', 'nlm_core_plain']

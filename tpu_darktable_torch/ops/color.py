@@ -136,6 +136,38 @@ def modify_vibrance(rgb: torch.Tensor, amount: float = 0.0) -> torch.Tensor:
     return _clip01(linear_to_srgb(color_transform_3x3(f_inv, _XYZ_TO_RGB_D65N)))
 
 
+def rgb_to_lab_l(rgb: torch.Tensor) -> torch.Tensor:
+    """LAB L (normalized /100) of an RGB value."""
+    return rgb_to_lab(rgb)[..., 0]
+
+
+def compute_luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (...) luminance: LAB L of the clipped RGB."""
+    return rgb_to_lab_l(_clip01(check_channels_last(rgb, 'rgb')))
+
+
+def compute_log_luminance(rgb: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """(..., 3) -> (...) log of the luminance, floored at eps."""
+    return torch.log(torch.clamp(compute_luminance(rgb), min=eps))
+
+
+def modify_luminance(rgb: torch.Tensor, new_luminance: torch.Tensor) -> torch.Tensor:
+    """Replace LAB L with `new_luminance` by a LAB round trip."""
+    check_channels_last(rgb, 'rgb')
+    if tuple(new_luminance.shape) != tuple(rgb.shape[:-1]):
+        raise RuntimeError(
+            f'new_luminance shape {tuple(new_luminance.shape)} must match '
+            f'rgb leading dims {tuple(rgb.shape[:-1])}')
+    return lab_modify_luminance(rgb_to_lab(rgb), new_luminance)
+
+
+def modify_log_luminance(rgb: torch.Tensor, log_luminance: torch.Tensor,
+                         eps: float = 1e-4) -> torch.Tensor:
+    """Replace LAB L with exp(log_luminance + eps); the reference adds eps
+    inside the exp."""
+    return lab_modify_luminance(rgb_to_lab(rgb), torch.exp(log_luminance + eps))
+
+
 def lab_modify_luminance(lab: torch.Tensor, new_luminance: torch.Tensor) -> torch.Tensor:
     """Replace LAB L and convert back to clipped sRGB."""
     lab = torch.cat((new_luminance[..., None], lab[..., 1:]), dim=-1)
@@ -159,13 +191,18 @@ def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     'color_transform_3x3',
+    'compute_log_luminance',
+    'compute_luminance',
     'lab_modify_luminance',
     'lab_to_rgb',
     'lab_to_xyz',
     'linear_to_srgb',
+    'modify_log_luminance',
+    'modify_luminance',
     'modify_vibrance',
     'rgb_to_gray',
     'rgb_to_lab',
+    'rgb_to_lab_l',
     'rgb_to_lab_with_clipped_l',
     'srgb_to_linear',
     'xyz_to_lab',

@@ -322,4 +322,34 @@ def _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol):
     return acc[k : k + h, k : k + w] / (mask[k : k + h, k : k + w, None] + _EPS)
 
 
-__all__ = ['wiener_denoise']
+def _median_rows(x: torch.Tensor) -> torch.Tensor:
+    """Median of each row, the mean of the two middle values for an even
+    count (as numpy and jnp.median; torch.median takes the lower one)."""
+    v = torch.sort(x, dim=1).values
+    n = v.shape[1]
+    if n % 2:
+        return v[:, n // 2]
+    return (v[:, n // 2 - 1] + v[:, n // 2]) * 0.5
+
+
+def estimate_channel_noise(image: torch.Tensor, stride: int = 8) -> torch.Tensor:
+    """Per-channel noise sigma of an (H, W, 3) image: Laplacian high pass,
+    sampled every `stride` px, then MAD / 0.6745.  Returns (3,)."""
+    x = image.to(_F32)
+    ch = x.permute(2, 0, 1)
+    p = F.pad(ch, (1, 1, 1, 1))
+    h, w = x.shape[0], x.shape[1]
+    hf = (
+        4.0 * p[:, 1 : 1 + h, 1 : 1 + w]
+        - p[:, 0:h, 1 : 1 + w]
+        - p[:, 2 : 2 + h, 1 : 1 + w]
+        - p[:, 1 : 1 + h, 0:w]
+        - p[:, 1 : 1 + h, 2 : 2 + w]
+    )
+    sub = hf[:, ::stride, ::stride].reshape(3, -1)
+    med = _median_rows(sub)
+    mad = _median_rows(torch.abs(sub - med[:, None]))
+    return mad / 0.6745
+
+
+__all__ = ['estimate_channel_noise', 'wiener_denoise']
