@@ -7,11 +7,13 @@ Phases (any failure raises and the script exits non-zero):
      build every kernel of csrc/ (one nvcc each, in parallel).
   2. each hand kernel against its plain PyTorch version on the card, at the
      shapes of its path (4096x3000; the general bilateral grid of sigma_s 3,
-     (6, 1001, 1366)): max abs error against the stated tolerance, kernel /
-     plain time by CUDA events, the time of one PyTorch call computing the
-     same function where there is one (conv3d for the grid blur), and the
-     bound (the least time the card could take: bytes over 3.35 TB/s or
-     operations over 33.5 T/s, whichever is larger).
+     (6, 1001, 1366); the Wiener tile core on the K=32, overlap-4 coset
+     slabs of the 12 MP log-L plane, (16, 3072, 4160)): max abs error
+     against the stated tolerance, kernel / plain time by CUDA events, the
+     time of PyTorch library calls computing the same function where there
+     are such (conv3d for the grid blur, the two dense matmuls for the
+     Wiener core), and the bound (the least time the card could take: bytes
+     over 3.35 TB/s or operations over 33.5 T/s, whichever is larger).
   3. the RCD golden cases of tests/goldens/pipeline_goldens.npz on the card
      (1 uint8 count).
   4. one FULL frame at 1024x768 on the card against the same on the CPU
@@ -32,6 +34,19 @@ Phases (any failure raises and the script exits non-zero):
      ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches
      and no bilateral_band; card vs CPU at 1024x768 (1 count); one
      bilateral_denoise of a 12 MP plane (2 grid_blur_xyz launches).
+  8. the opt-in kernel routes at full width:
+     wiener_denoise(use_separable=False) against the separable route on the
+     12 MP log-L plane (C=1) and on a 3-channel frame (bar 1e-3), and
+     bilateral_process(_use_fused_kernel=True) against the default fast
+     path (bar 1e-6), with the ms of each; then FULL for one batch of 4 with
+     its Wiener and bilateral stages swapped to the two kernels (a local
+     copy of the back-end loop), printing the uint8 count difference
+     against plain FULL; 4 launches of wiener_tile_core and bilateral_fused.
+  9. the piecewise entry point at 4096x3000: load_bytes -> debayer ->
+     process_rgb -> tonemap with bounds and metrics from a fused run of the
+     same frame, equal to the fused output within 1 count; then the PPG and
+     bilinear debayers and the linear and filmic tonemaps through the
+     piecewise chain, card vs CPU at 1024x768 (1 count).
 Then one JSON line with the kernels, and the result JSON as the last line.
 It imports nothing of JAX or of the JAX package.
 """
@@ -134,6 +149,7 @@ def phase_card_and_build():
 def phase_kernels(dev):
     """Each kernel vs its plain version at the shapes of its path."""
     from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral_band_plain
+    from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused, bilateral_fused_plain
     from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
     from tpu_darktable_torch.kernels.grid_blur import (W_DERIV, W_GAUSS, grid_blur_xyz,
                                                        grid_blur_xyz_plain)
@@ -168,6 +184,7 @@ def phase_kernels(dev):
             k_out, p_out = kf(), pf()
             torch.cuda.synchronize()
             err = max(err, err_fn(k_out, p_out))
+            del k_out, p_out
         log(f'{name}: max_abs_err {err:.3g} (tolerance {tol:g})')
         if not err <= tol:
             raise AssertionError(f'{name} disagrees with its plain version: {err} > {tol}')
@@ -206,9 +223,20 @@ def phase_kernels(dev):
            lambda: bilateral_band_plain(lum, s=2, gz=gz, sigma_r=0.2),
            lambda a, b: (a - b).abs().max().item(), 1e-5,
            4 * px + 4 * px, (27 + 45 + 22) * px)
+    # The same function in one launch: the same bytes and operations.
+    _, _, gz8 = compute_grid_size(W, H, 8.0, 0.2)
+    fused_pair = lambda s_, gz_, zm: (
+        lambda: bilateral_fused(lum, s=s_, gz=gz_, sigma_r=0.2, z_mode=zm),
+        lambda: bilateral_fused_plain(lum, s=s_, gz=gz_, sigma_r=0.2, z_mode=zm))
+    record('bilateral_fused', 'tpu_darktable_torch/csrc/bilateral_fused.cu',
+           'tpu_darktable/kernels/bilateral_fused.py:142',
+           *fused_pair(2, gz, 'derivative'),
+           lambda a, b: (a - b).abs().max().item(), 1e-6,
+           4 * px + 4 * px, (27 + 45 + 22) * px,
+           also=[fused_pair(2, gz, 'gaussian'), fused_pair(8, gz8, 'derivative')])
 
     # The denoise path's input: the FULL front end, normalized (config 3).
-    rgb_n = postprocess.postprocess(rgb, BayerPattern.RGGB, 3, True)
+    rgb_n = postprocess.postprocess(rgb, BayerPattern.RGGB, 3, green_eq_global_enabled=True)
     rgb_n = normalize_image(rgb_n, tonemap.compute_image_bounds(rgb_n))
     planes = rgb_n.permute(2, 0, 1).contiguous()
     inv_h2 = 1.0 / (0.05 * 0.05 * 9 * 3)
@@ -229,6 +257,7 @@ def phase_kernels(dev):
            lambda: wavelet_core_plain(planes, thr, levels=4),
            lambda a, b: (a - b).abs().max().item(), 1e-6,
            24 * px, 3 * (4 * 25 + 1) * px)
+    record_wiener_core(dev, record, rgb_n)
     # The general path's grid: sigma_s = 3 does not divide 4096.
     gx3, gy3, gz3 = compute_grid_size(W, H, 3.0, 0.2)
     op = bilateral._windowed(H, W, gx3, gy3, 3.0, dev)
@@ -256,6 +285,73 @@ def phase_kernels(dev):
                   lambda: grid_blur_xyz_plain(grid, z_mode='gaussian'))],
            library=conv)
     return out
+
+
+def record_wiener_core(dev, record, rgb_n):
+    """wiener_tile_core on the coset slabs FULL's log-L plane gives it (K=32,
+    overlap 4, C=1: (16, 3072, 4160)), and on K=16, overlap 2, C=3 slabs of
+    a 1024x768 crop, against the dense folded-basis einsums."""
+    from tpu_darktable_torch.kernels.wiener_core import (folded_bases, wiener_tile_core,
+                                                         wiener_tile_core_plain)
+    from tpu_darktable_torch.ops import color, wiener
+
+    def slabs_of(x, k, ov):
+        xr, n_ty, n_tx = wiener._reflect_pad(x, k, ov)
+        return wiener._coset_slabs(xr, k, ov, n_ty, n_tx)
+
+    k = 32
+    log_l = torch.log(torch.clamp(color.rgb_to_lab_with_clipped_l(rgb_n)[1], min=1e-4))
+    slabs = slabs_of(log_l[..., None], k, 4)
+    sig2 = torch.full((1,), 0.075 ** 2, device=dev)
+    wf, wi = wiener._gaussian_window(k, 0.3), wiener._gaussian_window(k, 0.3)
+    small = slabs_of(rgb_n[:768, :1024], 16, 2)
+    sig2_3 = torch.tensor([0.05, 0.03, 0.04], device=dev) ** 2
+    w16 = wiener._gaussian_window(16, 0.3)
+    log(f'wiener_tile_core slabs {tuple(slabs.shape)} (K=32, overlap 4, C=1) and '
+        f'{tuple(small.shape)} (K=16, overlap 2, C=3); max |x| {slabs.abs().max().item():.3f}')
+    n_tiles = slabs.numel() // (k * k)
+    # The library yardstick: the two dense products of the plain version as
+    # torch.matmul calls on tile-major operands, TF32 off.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ana3, syn3, _, _, n_rep = folded_bases(k, wf, wi, dev)
+    ana_t = ana3.reshape(-1, k * k).t().contiguous()
+    syn = syn3.reshape(-1, k * k).contiguous()
+    g = slabs.shape[0]
+    tiles = (slabs.reshape(g, -1, k, slabs.shape[2] // k, k).permute(0, 1, 3, 2, 4)
+             .reshape(n_tiles, k * k).contiguous())
+    spec = torch.matmul(tiles, ana_t)[:, : 2 * n_rep].contiguous()
+
+    def two_matmuls():
+        torch.matmul(tiles, ana_t)
+        torch.matmul(spec, syn)
+
+    # Tolerance: the kernel windows (t - m) and transforms rows then columns;
+    # the plain version transforms t with dense bases and subtracts m * a0
+    # afterwards, so the two differ by float32 rounding of sums whose terms
+    # reach max|t| * sum(wf2): 2e-6 * max(1, max|t|).
+    tol = 2e-6 * max(1.0, slabs.abs().max().item())
+    # Operations the function needs, whatever the kernel does: a real 2-D
+    # transform of N = K^2 points forward and inverse by FFT, 2.5 N log2 N
+    # each way, plus ~24 K^2 for the mean, both windows and the gain: 75,776
+    # a tile at K=32, under the 8 bytes a pixel, so the function is bound by
+    # bytes.  (The kernel's O(K^3) paired DFT runs 12 K^2 (K/2 + 1) + 24 K^2
+    # = 233,472 a tile; logged below, not part of the bound.)
+    need_ops = 5 * k * k * int(np.log2(k * k)) + 24 * k * k
+    run_ops = 12 * k * k * (k // 2 + 1) + 24 * k * k
+    log(f'wiener_tile_core operations a tile: {need_ops} needed (FFT count), {run_ops} as run; '
+        f'as run {n_tiles * run_ops / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate')
+    record('wiener_tile_core', 'tpu_darktable_torch/csrc/wiener_core.cu',
+           'tpu_darktable/kernels/wiener_core.py:70',
+           lambda: wiener_tile_core(slabs, sig2, wf, wi, k=k),
+           lambda: wiener_tile_core_plain(slabs, sig2, wf, wi, k=k),
+           lambda a, b: (a - b).abs().max().item(), tol,
+           8 * slabs.numel(), n_tiles * need_ops,
+           also=[(lambda: wiener_tile_core(small, sig2_3, w16, w16, k=16),
+                  lambda: wiener_tile_core_plain(small, sig2_3, w16, w16, k=16))],
+           library=two_matmuls)
+    log(f'library yardstick of wiener_tile_core: torch.matmul ({n_tiles}, {k * k}) x '
+        f'({k * k}, {2 * n_rep + 1}) and ({n_tiles}, {2 * n_rep}) x ({2 * n_rep}, {k * k}), '
+        'torch.backends.cuda.matmul.allow_tf32 = False')
 
 
 # ---------------------------------------------------------------- phase 3
@@ -379,7 +475,7 @@ def stage_ms(dev, frame_bytes):
     demosaic = lambda: rcd.rcd_demosaic(mosaic, BayerPattern.RGGB)
     strips = lambda: rcd._rcd_edge_strips(mosaic, BayerPattern.RGGB, True)
     rgb = demosaic()
-    post = lambda: postprocess.postprocess(rgb, BayerPattern.RGGB, 3, True)
+    post = lambda: postprocess.postprocess(rgb, BayerPattern.RGGB, 3, green_eq_global_enabled=True)
     rgb = post()
     bounds = tonemap.compute_image_bounds(rgb)
     norm = normalize_image(rgb, bounds)
@@ -415,21 +511,29 @@ def stage_ms(dev, frame_bytes):
 
 # ---------------------------------------------------------------- phase 6
 
+def front_end_raw(dev, batch):
+    """decode, WB, RCD, postprocess of a (B, n_bytes) batch -> (B, H, W, 3),
+    as the pipeline's first loop."""
+    from tpu_darktable_torch.ops import packed, postprocess, rcd, white_balance
+    from tpu_darktable_torch.ops.bayer import BayerPattern
+
+    wb = torch.tensor(WB, device=dev)
+    rgb = torch.empty((batch.shape[0], H, W, 3), dtype=torch.float32, device=dev)
+    for i in range(batch.shape[0]):
+        mosaic = white_balance.apply_white_balance(
+            packed.decode12_float(batch[i].reshape(H, W * 3 // 2)), wb, BayerPattern.RGGB)
+        rgb[i] = postprocess.postprocess(rcd.rcd_demosaic(mosaic, BayerPattern.RGGB),
+                                         BayerPattern.RGGB, 3, green_eq_global_enabled=True)
+    return rgb
+
+
 def front_end(dev, n, seed):
     """n frames of demosaiced RGB as FULL hands them to its denoise stage:
     decode, WB, RCD, postprocess, then normalize by the set's bounds."""
-    from tpu_darktable_torch.ops import packed, postprocess, rcd, tonemap, white_balance
-    from tpu_darktable_torch.ops.bayer import BayerPattern
+    from tpu_darktable_torch.ops import tonemap
     from tpu_darktable_torch.pipeline.util import normalize_image
 
-    frames = synthetic_frames(W, H, n, seed).to(dev)
-    wb = torch.tensor(WB, device=dev)
-    rgb = torch.empty((n, H, W, 3), dtype=torch.float32, device=dev)
-    for i in range(n):
-        mosaic = white_balance.apply_white_balance(
-            packed.decode12_float(frames[i].reshape(H, W * 3 // 2)), wb, BayerPattern.RGGB)
-        rgb[i] = postprocess.postprocess(rcd.rcd_demosaic(mosaic, BayerPattern.RGGB),
-                                         BayerPattern.RGGB, 3, True)
+    rgb = front_end_raw(dev, synthetic_frames(W, H, n, seed).to(dev))
     return normalize_image(rgb, tonemap.compute_image_bounds(rgb))
 
 
@@ -527,6 +631,165 @@ def phase_general_bilateral(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+def phase_opt_in_routes(dev):
+    """The two opt-in kernel routes at full width against the default ones,
+    then FULL for one batch with both stages on the kernel routes."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import kernels
+    from tpu_darktable_torch.ops import bilateral, color, tonemap, wiener
+    from tpu_darktable_torch.pipeline.util import normalize_image
+
+    s = full_settings()
+    rgb = front_end(dev, 1, seed=600)[0]
+    log_l = torch.log(torch.clamp(color.rgb_to_lab_with_clipped_l(rgb)[1], min=1e-4))[..., None]
+    f16 = dict(spectral_dtype=torch.float16, storage_dtype=torch.float16)
+    for label, x, sig in (('log-L plane (C=1)', log_l, s.denoise),
+                          ('RGB frame (C=3)', rgb, [0.05, 0.03, 0.04])):
+        tile = wiener.wiener_denoise(x, sig, 32, s.denoise_overlap, use_separable=False)
+        d32 = (tile - wiener.wiener_denoise(x, sig, 32, s.denoise_overlap)).abs().max().item()
+        d16 = (tile - wiener.wiener_denoise(x, sig, 32, s.denoise_overlap, **f16)
+               ).abs().max().item()
+        del tile
+        ms = {name: cuda_ms(fn, iters=3, warmup=1) for name, fn in (
+            ('tile core', lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap,
+                                                        use_separable=False)),
+            ('separable f16 storage', lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap,
+                                                                    **f16)),
+            ('separable f32', lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap)))}
+        log(f'wiener_denoise {W}x{H} {label}, tile-core route vs separable: max |diff| '
+            f'{d32:.3g} (float32, bar 1e-3), {d16:.3g} (float16 storage, as FULL runs it: the '
+            f'storage rounding itself, no bar); ms '
+            + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()))
+        if not d32 <= 1e-3:
+            raise AssertionError(f'wiener tile-core route differs from the separable route by '
+                                 f'{d32} on the {label}')
+    lum = color.compute_luminance(rgb)
+    args = (lum, s.bil_sigma_spatial, s.bil_sigma_luminance, s.bilateral)
+    d = (bilateral.bilateral_process(*args, _use_fused_kernel=True)
+         - bilateral.bilateral_process(*args)).abs().max().item()
+    ms = {name: cuda_ms(fn, iters=10, warmup=2) for name, fn in (
+        ('fused', lambda: bilateral.bilateral_process(*args, _use_fused_kernel=True)),
+        ('band (default)', lambda: bilateral.bilateral_process(*args)))}
+    log(f'bilateral_process {W}x{H} sigma_s 2, fused route vs default: max |diff| {d:.3g} '
+        f'(bar 1e-6); ms ' + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()))
+    if not d <= 1e-6:
+        raise AssertionError(f'bilateral fused route differs from the default by {d}')
+    del rgb, log_l, lum
+
+    # FULL, one batch of 4, with the Wiener and bilateral stages on the two
+    # kernels: the back end of pipeline/image_processor.py copied here with
+    # the two routes switched (no setting selects them in the pipeline).
+    batch = synthetic_frames(W, H, BATCH, seed=100).to(dev)
+    proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                             device=dev, white_balance=WB)
+    ref = proc.process_batch(batch)
+    rgb = front_end_raw(dev, batch)
+    bounds = tonemap.compute_image_bounds(rgb[:, ::8, ::8], stride=1)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    samples = []
+    for i in range(BATCH):
+        x = normalize_image(rgb[i], bounds)
+        lab, l_clip = color.rgb_to_lab_with_clipped_l(x)
+        den = wiener.wiener_denoise(torch.log(torch.clamp(l_clip, min=1e-4))[..., None], s.denoise,
+                                    32, s.denoise_overlap, use_separable=False)[..., 0]
+        x = color.lab_modify_luminance(lab, torch.exp(den + 1e-4))
+        lab = color.rgb_to_lab(x)
+        out_l = bilateral.bilateral_process(lab[..., 0], s.bil_sigma_spatial,
+                                            s.bil_sigma_luminance, s.bilateral,
+                                            _use_fused_kernel=True)
+        rgb[i] = color.lab_modify_luminance(lab, out_l)
+        samples.append(rgb[i, ::8, ::8])
+    metrics = tonemap.compute_image_metrics(torch.stack(samples), stride=1)
+    params = tonemap.TonemapParameters(s.tone_gamma, s.tone_intensity, s.light_adapt, s.vibrance)
+    out = tonemap.aces_tonemap(rgb, params, metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f'kernel-route launches: {launches}')
+    for name in ('wiener_tile_core', 'bilateral_fused'):
+        if launches[name] != BATCH:
+            raise AssertionError(f'{name} launched {launches[name]} times on its route, '
+                                 f'expected {BATCH}')
+    if launches['bilateral_band'] != 0:
+        raise AssertionError('bilateral_band ran on the fused route')
+    if out.shape != ref.shape or out.dtype != torch.uint8:
+        raise AssertionError(f'kernel-route FULL output {tuple(out.shape)} {out.dtype}')
+    diff = (out.to(torch.int16) - ref.to(torch.int16)).abs()
+    log(f'FULL {W}x{H} batch {BATCH} with wiener_tile_core and bilateral_fused in place of the '
+        f'separable einsums and bilateral_band: max |diff| to plain FULL {diff.max().item()} '
+        f'count(s), {(diff > 0).float().mean().item():.3e} of values differ, '
+        f'{(diff > 1).float().mean().item():.3e} by more than 1; back end + tonemap '
+        f'{seconds / BATCH * 1e3:.2f} ms/frame')
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+def piecewise(proc, data):
+    """One frame through the piecewise entry point, carrying its own bounds
+    and metrics as the fused path computes them (stride 8)."""
+    import tpu_darktable_torch as tt
+
+    rgb = proc.load_image(data)
+    rgb = proc.process_rgb(rgb, tt.compute_image_bounds([rgb], stride=8))
+    return proc.tonemap(rgb, tt.compute_image_metrics([rgb], stride=8))
+
+
+def phase_piecewise(dev):
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import kernels
+
+    s = full_settings()
+    mk = lambda size, settings, d: tt.ImageProcessor(
+        size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, settings, device=d,
+        white_balance=WB)
+    frame = synthetic_frames(W, H, 1, seed=700)[0].to(dev)
+    fused_proc = mk((W, H), s, dev)
+    fused = fused_proc.process(frame, 'x')
+    proc = mk((W, H), s, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rgb = proc.debayer(proc.load_bytes(frame))
+    rgb = proc.process_rgb(rgb, fused_proc.bounds)
+    out = proc.tonemap(rgb, fused_proc.metrics)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launches)
+    d = int((out.to(torch.int16) - fused.to(torch.int16)).abs().max().item())
+    log(f'piecewise {W}x{H} (load_bytes -> debayer -> process_rgb -> tonemap, FULL settings): '
+        f'max |diff| to the fused path {d} count(s); {ms:.2f} ms (first call); '
+        f'launches {launches}')
+    if d > 1 or tuple(out.shape) != (H, W, 3) or out.dtype != torch.uint8:
+        raise AssertionError(f'piecewise differs from fused by {d} counts, or has the wrong '
+                             f'shape {tuple(out.shape)} {out.dtype}')
+    for name, n in launches.items():
+        if n != (1 if name in FULL_KERNELS else 0):
+            raise AssertionError(f'piecewise launched {name} {n} times')
+
+    w, h = 1024, 768
+    data = synthetic_frames(w, h, 1, seed=5)[0]
+    variants = {
+        'ppg': dataclasses.replace(s, debayer=tt.Debayer.ppg, ppg_median_threshold=2.0),
+        'bilinear': dataclasses.replace(s, debayer=tt.Debayer.bilinear),
+        'linear tonemap': dataclasses.replace(s, tone_mapping=tt.ToneMapper.linear),
+        'filmic tonemap': dataclasses.replace(s, tone_mapping=tt.ToneMapper.filmic),
+    }
+    for label, settings in variants.items():
+        a = piecewise(mk((w, h), settings, dev), data).cpu().numpy().astype(int)
+        b = piecewise(mk((w, h), settings, torch.device('cpu')), data).numpy().astype(int)
+        d = int(np.abs(a - b).max())
+        log(f'piecewise {label} card vs cpu at {w}x{h}: max |diff| {d} count(s), '
+            f'{(a != b).mean():.2e} of values differ')
+        if d > 1 or a.std() < 1.0:
+            raise AssertionError(f'piecewise {label}: card and CPU differ by {d} counts, or flat')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs one GPU',
@@ -544,6 +807,9 @@ def main():
     launches.update({k: v for k, v in phase_denoise(dev).items()
                      if k in ('wavelet_core', 'nlm_core')})
     launches['grid_blur_xyz'] = phase_general_bilateral(dev)['grid_blur_xyz']
+    launches.update({k: v for k, v in phase_opt_in_routes(dev).items()
+                     if k in ('wiener_tile_core', 'bilateral_fused')})
+    phase_piecewise(dev)
     for k in kern:
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',

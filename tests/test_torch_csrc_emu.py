@@ -5,7 +5,10 @@ small serial emulation of CUDA (EMU_HEADER below: one thread a block
 for kernels with shared memory, every thread in turn otherwise),
 built with g++ -ffp-contract=off (like nvcc --fmad=false) and called
 through the same C entry points the wrappers use.  It checks the kernels'
-indexing, halos and arithmetic against their plain versions, bit for bit;
+indexing, halos and arithmetic against their plain versions, bit for bit
+(the Wiener tile core, whose sums cannot run in its plain version's order,
+against a numpy loop in the kernel's own order, and against the plain
+version at a stated tolerance);
 it cannot see races, launch limits or anything the GPU compiler refuses,
 which only chip_smoke.py on the card can.
 """
@@ -21,12 +24,15 @@ import torch
 
 from tpu_darktable_torch.kernels._build import CSRC
 from tpu_darktable_torch.kernels.bilateral_band import bilateral_band_plain
+from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused_plain
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core_plain
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core_plain
+from tpu_darktable_torch.kernels.wiener_core import _tables, wiener_tile_core_plain
 from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
+from tpu_darktable_torch.ops.wiener import _gaussian_window
 
 torch.set_num_threads(1)
 # Serial CPU emulation of the CUDA subset the csrc/*.cu sources use.
@@ -178,3 +184,113 @@ def test_nlm_source_on_host(emu_lib, rng, shape, sr, pr):
     assert fn(_p(x), _p(out), *shape, sr, pr, inv_h2, None) == 0
     ref = nlm_core_plain(torch.from_numpy(x), inv_h2, search_radius=sr, patch_radius=pr)
     assert np.abs(out - ref.numpy()).max() <= 1e-6
+
+
+@pytest.mark.parametrize('h,w,s,gz,sr,z_mode', [
+    (60, 84, 2, 6, 0.2, 'derivative'),    # staged; 1 x 2 ragged 64-px tiles
+    (60, 84, 2, 6, 0.2, 'gaussian'),
+    (144, 136, 8, 6, 0.2, 'derivative'),  # three tiles a side, s = 8
+    (30, 42, 3, 11, 0.1, 'derivative'),   # s does not divide the tile
+    (20, 24, 1, 6, 0.2, 'gaussian'),
+    (70, 66, 2, 51, 0.02, 'derivative'),  # gz 51: the launcher shrinks the tile
+    (120, 240, 120, 6, 0.2, 'derivative'),  # s too large to stage: reads lum directly
+])
+def test_bilateral_fused_source_on_host(emu_lib, rng, h, w, s, gz, sr, z_mode):
+    """The single-launch kernel against its plain version: bit-exact (the
+    kernel sums in the plain version's order)."""
+    lum = (rng.random((h, w)) * 0.95).astype(np.float32)
+    lum[:3, :5] = 0.0   # zero luminance next to the pad: the tent at z = 0 must not leak
+    out = np.zeros_like(lum)
+    fn = emu_lib['bilateral_fused'].bilateral_fused_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    assert fn(_p(lum), _p(out), h, w, s, gz, sr, int(z_mode == 'gaussian'), None) == 0
+    ref = bilateral_fused_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr, z_mode=z_mode)
+    np.testing.assert_array_equal(out, ref.numpy())
+
+
+def _wiener_core_in_kernel_order(tiles, s2, tab):
+    """csrc/wiener_core.cu on (N, K, K) float32 tiles in numpy float32, every
+    sum in the kernel's order: over the even and the odd indices separately,
+    ascending, then combined for the output pair n, n + K/2."""
+    f = np.float32
+    n, k, _ = tiles.shape
+    un, msk, hk = k // 2 + 1, k - 1, k // 2
+    cs, sn, wf, wi = tab
+    rowsum = np.zeros((n, k), f)
+    for j in range(k):
+        rowsum = rowsum + tiles[:, :, j]
+    m = np.zeros(n, f)
+    for i in range(k):
+        m = m + rowsum[:, i]
+    inv_kk = f(1.0) / f(k * k)
+    m = m * inv_kk
+    w2f = wf[:, None] * wf[None, :]
+    x = (tiles - m[:, None, None]) * w2f
+
+    def even_odd(term, count):
+        """Sums of term(t) over even t and over odd t < count."""
+        e = o = f(0)
+        for t in range(0, count, 2):
+            e = e + term(t)
+            if t + 1 < count:
+                o = o + term(t + 1)
+        return e, o
+
+    # rows: v in [0, K/4] pairs with K/2 - v
+    v = np.arange(k // 4 + 1)
+    ec, oc = even_odd(lambda j: x[:, :, j, None] * cs[(j * v) & msk], k)
+    es, os_ = even_odd(lambda j: x[:, :, j, None] * sn[(j * v) & msk], k)
+    p, q = np.zeros((n, k, un), f), np.zeros((n, k, un), f)
+    p[:, :, hk - v], q[:, :, hk - v] = ec - oc, os_ - es
+    p[:, :, v], q[:, :, v] = ec + oc, es + os_
+    # columns: u in [0, K/2) pairs with u + K/2
+    u = np.arange(hk)
+    c = lambda i: cs[(u * i) & msk][None, :, None]
+    s = lambda i: sn[(u * i) & msk][None, :, None]
+    ea, oa = even_odd(lambda i: c(i) * p[:, i, None, :] - s(i) * q[:, i, None, :], k)
+    eb, ob = even_odd(lambda i: s(i) * p[:, i, None, :] + c(i) * q[:, i, None, :], k)
+    a = np.concatenate([ea + oa, ea - oa], axis=1)
+    b = np.concatenate([eb + ob, eb - ob], axis=1)
+    power = (a * a + b * b) + f(1e-15)
+    gain = np.maximum(power - s2[:, None, None], f(0)) / power
+    a, b = a * gain, b * gain
+    # inverse columns: i in [0, K/2) pairs with i + K/2
+    ec, oc = even_odd(lambda w: c(w) * a[:, w, None, :] + s(w) * b[:, w, None, :], k)
+    ed, od = even_odd(lambda w: c(w) * b[:, w, None, :] - s(w) * a[:, w, None, :], k)
+    vv = np.arange(un)
+    rho = np.where((vv == 0) | (vv == hk), inv_kk, f(2) * inv_kk).astype(f)
+    p = np.concatenate([(ec + oc) * rho, (ec - oc) * rho], axis=1)
+    q = np.concatenate([(ed + od) * rho, (ed - od) * rho], axis=1)
+    # inverse rows: j in [0, K/2) pairs with j + K/2
+    j = np.arange(hk)
+    e, o = even_odd(lambda w: cs[(w * j) & msk] * p[:, :, w, None]
+                    + sn[(w * j) & msk] * q[:, :, w, None], un)
+    acc = np.concatenate([e + o, e - o], axis=2)
+    w2i = wi[:, None] * wi[None, :]
+    return acc * w2i + m[:, None, None] * (w2f * w2i)
+
+
+@pytest.mark.parametrize('k,g,n_ty,n_tx,n_sig,offset', [
+    (32, 4, 2, 3, 1, 0.0), (16, 12, 3, 2, 3, 0.0), (32, 3, 1, 2, 3, -7.0), (16, 4, 2, 5, 4, -7.0)])
+def test_wiener_core_source_on_host(emu_lib, rng, k, g, n_ty, n_tx, n_sig, offset):
+    """Bit for bit against a numpy loop in the kernel's own summation order;
+    against the plain version (dense folded-basis einsums, another order,
+    the mean subtracted after the transform) within 2e-6 * max(1, max|x|):
+    float32 rounding of sums whose terms reach |x| * sum(wf2)."""
+    x = (rng.random((g, n_ty * k, n_tx * k)) * 0.5 + offset).astype(np.float32)
+    sig2 = (rng.random(n_sig) * 0.01 + 0.002).astype(np.float32)
+    wf, wi = _gaussian_window(k, 0.3), _gaussian_window(k, 0.3)
+    tab = _tables(k, wf.tobytes(), wi.tobytes(), torch.device('cpu')).numpy()
+    out = np.zeros_like(x)
+    fn = emu_lib['wiener_core'].wiener_core_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    assert fn(_p(x), _p(out), _p(sig2), _p(np.ascontiguousarray(tab)), k, g, n_ty, n_tx, n_sig,
+              None) == 0
+    tiles = x.reshape(g, n_ty, k, n_tx, k).transpose(0, 1, 3, 2, 4).reshape(-1, k, k)
+    s2 = np.repeat(sig2, g // n_sig * n_ty * n_tx)
+    ref = _wiener_core_in_kernel_order(tiles, s2, tab)
+    ref = ref.reshape(g, n_ty, n_tx, k, k).transpose(0, 1, 3, 2, 4).reshape(x.shape)
+    np.testing.assert_array_equal(out, ref)
+    plain = wiener_tile_core_plain(torch.from_numpy(x), torch.from_numpy(sig2), wf, wi, k=k).numpy()
+    assert np.abs(out - plain).max() <= 2e-6 * max(1.0, np.abs(x).max())

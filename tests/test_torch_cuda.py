@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from tpu_darktable_torch import kernels
+from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused, bilateral_fused_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz, grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core, nlm_core_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core, wavelet_core_plain
-from tpu_darktable_torch.ops import bilateral, nlm
+from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core, wiener_tile_core_plain
+from tpu_darktable_torch.ops import bilateral, nlm, wiener
 
 
 @pytest.fixture()
@@ -77,3 +79,46 @@ def test_paths_launch_their_kernels(dev):
     assert kernels.launches['nlm_core'] == 1
     assert kernels.launches['grid_blur_xyz'] == 3
     assert kernels.launches['bilateral_band'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w,s,gz,sr,z_mode', [
+    (130, 200, 2, 6, 0.2, 'derivative'), (130, 200, 1, 6, 0.2, 'gaussian'),
+    (144, 136, 8, 11, 0.1, 'derivative'), (70, 66, 2, 51, 0.02, 'derivative'),
+    (240, 360, 120, 6, 0.2, 'derivative')])
+def test_bilateral_fused_on_card(dev, h, w, s, gz, sr, z_mode):
+    """Ragged tiles, a shrunk tile (gz 51) and the unstaged splat (s 120)
+    against the plain version: 1e-6 (same sum order; PyTorch's CUDA division
+    by a scalar multiplies by the reciprocal, the kernel divides)."""
+    lum = _rand(6, (h, w), dev) * 0.95
+    err = (bilateral_fused(lum, s=s, gz=gz, sigma_r=sr, z_mode=z_mode)
+           - bilateral_fused_plain(lum, s=s, gz=gz, sigma_r=sr, z_mode=z_mode))
+    assert err.abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,g,n_sig,offset', [(32, 16, 1, -6.0), (16, 12, 3, 0.0), (16, 192, 3, 0.0)])
+def test_wiener_core_on_card(dev, k, g, n_sig, offset):
+    """Against the dense folded-basis einsums: 2e-6 * max(1, max|x|) (sums in
+    another order, the mean subtracted before the transform, not after)."""
+    x = _rand(7, (g, 3 * k, 5 * k), dev) * 0.5 + offset
+    sig2 = _rand(8, (n_sig,), dev) * 0.01 + 0.002
+    wf = wiener._gaussian_window(k, 0.3)
+    err = (wiener_tile_core(x, sig2, wf, wf, k=k) - wiener_tile_core_plain(x, sig2, wf, wf, k=k))
+    assert err.abs().max().item() <= 2e-6 * max(1.0, abs(offset) + 0.5)
+
+
+@pytest.mark.cuda
+def test_opt_in_routes_launch_their_kernels(dev):
+    kernels.reset_launches()
+    img = _rand(9, (96, 128, 3), dev)
+    a = wiener.wiener_denoise(img, 0.05, 16, 4, use_separable=False)
+    b = wiener.wiener_denoise(img, 0.05, 16, 4)
+    assert (a - b).abs().max().item() <= 1e-4
+    lum = img[..., 0].contiguous()
+    c = bilateral.bilateral_process(lum, 2.0, 0.2, 0.4, _use_fused_kernel=True)
+    d = bilateral.bilateral_process(lum, 2.0, 0.2, 0.4)
+    assert (c - d).abs().max().item() <= 1e-6
+    assert kernels.launches['wiener_tile_core'] == 1
+    assert kernels.launches['bilateral_fused'] == 1
+    assert kernels.launches['bilateral_band'] == 1

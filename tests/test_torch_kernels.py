@@ -18,11 +18,13 @@ from tpu_darktable.ops.bayer import BayerPattern as JPattern
 
 from tpu_darktable_torch import kernels
 from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral_band_plain
+from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz
 from tpu_darktable_torch.kernels.nlm import nlm_core
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core
+from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core
 from tpu_darktable_torch.ops import bilateral as tbil
 from tpu_darktable_torch.ops import rcd as trcd
 from tpu_darktable_torch.ops.bayer import BayerPattern as TPattern, site_parities
@@ -140,8 +142,12 @@ def test_cpu_runs_plain_versions_and_counts_nothing(rng):
     grid_blur_xyz(torch.stack([x] * 6))
     wavelet_core(x[None], torch.tensor([0.1]), levels=4)
     nlm_core(x[None], 10.0)
+    wf = np.full(16, 0.25, np.float32)
+    wiener_tile_core(torch.stack([x, x]), torch.tensor([0.01]), wf, wf, k=16)
+    bilateral_fused(x, s=2, gz=6, sigma_r=0.2)
     assert kernels.launches == {'rcd_interior': 0, 'color_smooth_diffs': 0, 'bilateral_band': 0,
-                                'grid_blur_xyz': 0, 'wavelet_core': 0, 'nlm_core': 0}
+                                'grid_blur_xyz': 0, 'wavelet_core': 0, 'nlm_core': 0,
+                                'wiener_tile_core': 0, 'bilateral_fused': 0}
 
 
 @pytest.mark.cuda

@@ -174,7 +174,7 @@ def test_device_rules():
             tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, settings)
     with pytest.raises(NotImplementedError):
         tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
-                          dataclasses.replace(settings, debayer=tt.Debayer.ppg), device='cpu')
+                          dataclasses.replace(settings, enable_laplacian=True), device='cpu')
     proc = tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
                              settings, device='cpu')
     with pytest.raises(tt.pipeline.ImageSizeMismatchError):
@@ -193,7 +193,9 @@ def test_port_imports_without_jax():
         "import tpu_darktable_torch.kernels.color_smooth, tpu_darktable_torch.kernels.bilateral_band\n"
         "import tpu_darktable_torch.kernels.grid_blur, tpu_darktable_torch.kernels.wavelet\n"
         "import tpu_darktable_torch.kernels.nlm, tpu_darktable_torch.denoise\n"
-        "import tpu_darktable_torch.local_contrast\n"
+        "import tpu_darktable_torch.local_contrast, tpu_darktable_torch.debayer\n"
+        "import tpu_darktable_torch.kernels.wiener_core, tpu_darktable_torch.kernels.bilateral_fused\n"
+        "import tpu_darktable_torch.pipeline.presets, tpu_darktable_torch.tonemap\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,

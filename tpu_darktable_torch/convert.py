@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port.
 
 The system has no weights: what it carries is the settings, the white
-balance and the EMA statistics (`bounds` (2,), `metrics` (5,)).  Both
+balance and the EMA statistics (`bounds` (2,), `metrics` (5,)).  The
 functions take plain Python / numpy values, so nothing of JAX is imported.
 """
 
@@ -10,13 +10,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.tonemap import metrics_from_dict
 from .pipeline.config import ImageProcessingSettings
 from .pipeline.image_processor import ImageProcessor
 
 
 def settings_from_dict(d: dict) -> ImageProcessingSettings:
     """Settings from the JAX package's `settings.model_dump()` (a plain dict
-    with enum names)."""
+    with enum members or names); `get_preset(name).model_dump()` gives the
+    port's preset of the same name."""
     return ImageProcessingSettings.from_dict(dict(d))
 
 
@@ -24,9 +26,12 @@ def processor_state_from_numpy(processor: ImageProcessor, bounds, metrics,
                                white_balance=None) -> ImageProcessor:
     """Load EMA state (and optionally the white balance) taken from a JAX
     ImageProcessor as numpy arrays into a port ImageProcessor, on its device.
+    `metrics` may also be the JAX package's `metrics_to_dict(...)` dict.
     Returns the processor."""
     f32 = dict(dtype=torch.float32, device=processor.device)
     b = np.asarray(bounds, dtype=np.float32).reshape(-1)
+    if isinstance(metrics, dict):
+        metrics = metrics_from_dict(metrics).numpy()
     m = np.asarray(metrics, dtype=np.float32).reshape(-1)
     if b.shape != (2,) or m.shape != (5,):
         raise RuntimeError(f'bounds must be (2,) and metrics (5,), got {b.shape} {m.shape}')
@@ -39,7 +44,7 @@ def processor_state_from_numpy(processor: ImageProcessor, bounds, metrics,
         rebuild = processor.white_balance is None
         processor.white_balance = torch.tensor(wb, **f32)
         if rebuild:  # the pipeline is built with or without the WB stage
-            processor._fused = processor._build()
+            processor._rebuild_workspaces()
     return processor
 
 

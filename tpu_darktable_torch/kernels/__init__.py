@@ -16,6 +16,8 @@ launches: dict[str, int] = {
     'grid_blur_xyz': 0,
     'wavelet_core': 0,
     'nlm_core': 0,
+    'wiener_tile_core': 0,
+    'bilateral_fused': 0,
 }
 
 

@@ -27,6 +27,8 @@ SOURCES = {
     'grid_blur_xyz': 'grid_blur.cu',
     'wavelet_core': 'wavelet.cu',
     'nlm_core': 'nlm.cu',
+    'wiener_tile_core': 'wiener_core.cu',
+    'bilateral_fused': 'bilateral_fused.cu',
 }
 # --fmad=false: no a*b+c contraction, so the kernels round like their plain
 # versions.  Never --use_fast_math: pow/exp/division must stay IEEE.

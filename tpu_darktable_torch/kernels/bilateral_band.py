@@ -72,7 +72,8 @@ def _splat_axis(img: torch.Tensor, axis: int, n_cells: int, s: int) -> torch.Ten
     return out.movedim(-1, axis)
 
 
-def bilateral_band_plain(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> torch.Tensor:
+def bilateral_band_plain(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float,
+                         z_mode: str = 'derivative') -> torch.Tensor:
     """Plain PyTorch version: the JAX package's XLA chain on the integer
     fast path (ops/bilateral.py), slab by slab."""
     h, w = lum.shape
@@ -84,7 +85,7 @@ def bilateral_band_plain(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) 
         wz = torch.clamp(1.0 - torch.abs(g_z - z), min=0.0)
         slabs.append(_splat_axis(_splat_axis(wz * contrib, 1, gx, s), 0, gy, s))
     grid = torch.stack(slabs)
-    grid = grid_blur_xyz_plain(grid, z_mode='derivative')
+    grid = grid_blur_xyz_plain(grid, z_mode=z_mode)
 
     ib_z = torch.clamp(g_z.to(torch.int32), max=gz - 2)
     frac_z = g_z - ib_z.to(torch.float32)

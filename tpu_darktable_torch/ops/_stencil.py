@@ -13,14 +13,23 @@ from .bayer import BayerPattern, site_parities
 
 
 class Shifter:
-    """`s(dy, dx)[..., r, c] == x[..., r + dy, c + dx]`, with zero fill for
-    reads outside the image (the reference's zero-filled tile loads)."""
+    """`s(dy, dx)[..., r, c] == x[..., r + dy, c + dx]`; reads outside the
+    image give zero (mode 'constant', the reference's zero-filled tile
+    loads) or the nearest edge pixel (mode 'edge')."""
 
-    def __init__(self, x: torch.Tensor, radius: int):
+    def __init__(self, x: torch.Tensor, radius: int, mode: str = 'constant'):
         self.h = x.shape[-2]
         self.w = x.shape[-1]
         self.r = radius
-        self.p = F.pad(x, (radius, radius, radius, radius))
+        pads = (radius, radius, radius, radius)
+        if mode == 'constant':
+            self.p = F.pad(x, pads)
+        elif mode == 'edge':
+            lead = x.shape[:-2]
+            self.p = F.pad(x.reshape((1, -1) + x.shape[-2:]), pads, mode='replicate').reshape(
+                lead + (self.h + 2 * radius, self.w + 2 * radius))
+        else:
+            raise ValueError(f"mode must be 'constant' or 'edge', got {mode!r}")
 
     def __call__(self, dy: int, dx: int) -> torch.Tensor:
         r = self.r

@@ -71,6 +71,20 @@ def color_transform_3x3(color: torch.Tensor, matrix) -> torch.Tensor:
     )
 
 
+def rgb_to_xyz(rgb: torch.Tensor) -> torch.Tensor:
+    """sRGB (gamma) -> XYZ, with the linearization."""
+    return color_transform_3x3(srgb_to_linear(rgb), _RGB_TO_XYZ)
+
+
+def xyz_to_rgb(xyz: torch.Tensor) -> torch.Tensor:
+    """XYZ -> sRGB (gamma), with the gamma encode."""
+    return linear_to_srgb(color_transform_3x3(xyz, _XYZ_TO_RGB))
+
+
+def xyz_to_linear_rgb(xyz: torch.Tensor) -> torch.Tensor:
+    return color_transform_3x3(xyz, _XYZ_TO_RGB)
+
+
 def _lab_f(t):
     delta = 6.0 / 29.0
     factor = 1.0 / (3.0 * delta * delta)
@@ -110,11 +124,11 @@ def lab_to_xyz(lab: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
-    return xyz_to_lab(color_transform_3x3(srgb_to_linear(rgb), _RGB_TO_XYZ))
+    return xyz_to_lab(rgb_to_xyz(rgb))
 
 
 def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
-    return linear_to_srgb(color_transform_3x3(lab_to_xyz(lab), _XYZ_TO_RGB))
+    return xyz_to_rgb(lab_to_xyz(lab))
 
 
 def modify_vibrance(rgb: torch.Tensor, amount: float = 0.0) -> torch.Tensor:
@@ -204,6 +218,9 @@ __all__ = [
     'rgb_to_lab',
     'rgb_to_lab_l',
     'rgb_to_lab_with_clipped_l',
+    'rgb_to_xyz',
     'srgb_to_linear',
     'xyz_to_lab',
+    'xyz_to_linear_rgb',
+    'xyz_to_rgb',
 ]

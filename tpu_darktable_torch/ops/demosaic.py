@@ -1,15 +1,18 @@
-"""The border ladder that RCD runs on its edge strips (counterpart of
-tpu_darktable/ops/demosaic.py:125-353): `border_interpolate`, `ppg_green`
-and `ppg_redblue`.  Bilinear and PPG as whole demosaics are not ported yet.
+"""Demosaic: bilinear 5x5 and PPG, plus the border ladder that RCD runs on
+its edge strips (counterpart of tpu_darktable/ops/demosaic.py).  Each
+algorithm is a function of an (H, W) Bayer mosaic built from shifted views
+(ops/_stencil.py); the boundary rules (zero-filled reads, border rings, the
+pass-through edge) are the reference's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._validate import as_mosaic
-from .bayer import BayerPattern, fc, fc_tile
-from ._stencil import Shifter, row_col_iota, site_masks
+from .bayer import BayerPattern, fc, fc_tile, pixel_order
+from ._stencil import Shifter, interior_mask, row_col_iota, site_masks, sort9
 
 _F32 = torch.float32
 
@@ -18,6 +21,70 @@ def _tile2x2_map(h: int, w: int, tile, device) -> torch.Tensor:
     """Expand a (2, 2) table into an (h, w) map by row/column parity."""
     t = torch.as_tensor(tile, device=device)
     return t.repeat((h + 1) // 2, (w + 1) // 2)[:h, :w]
+
+
+# Diamond 5x5 offsets, 13 taps, as (dx, dy) pairs.
+_DIAMOND_OFFSETS = [
+    (-2, 0),
+    (-1, -1), (-1, 0), (-1, 1),
+    (0, -2), (0, -1), (0, 0), (0, 1), (0, 2),
+    (1, -1), (1, 0), (1, 1),
+    (2, 0),
+]
+
+# Per-pixel-type kernels (R, G1, G2, B) x 13 taps x RGB.
+_DIAMOND_KERNELS = np.array(
+    [
+        [
+            [0, -2, -3],
+            [0, 0, 4], [0, 4, 0], [0, 0, 4],
+            [0, -2, -3], [0, 4, 0], [16, 8, 12], [0, 4, 0], [0, -2, -3],
+            [0, 0, 4], [0, 4, 0], [0, 0, 4],
+            [0, -2, -3],
+        ],
+        [
+            [-2, 0, 1],
+            [-2, 0, -2], [8, 0, 0], [-2, 0, -2],
+            [1, 0, -2], [0, 0, 8], [10, 16, 10], [0, 0, 8], [1, 0, -2],
+            [-2, 0, -2], [8, 0, 0], [-2, 0, -2],
+            [-2, 0, 1],
+        ],
+        [
+            [1, 0, -2],
+            [-2, 0, -2], [0, 0, 8], [-2, 0, -2],
+            [-2, 0, 1], [8, 0, 0], [10, 16, 10], [8, 0, 0], [-2, 0, 1],
+            [-2, 0, -2], [0, 0, 8], [-2, 0, -2],
+            [1, 0, -2],
+        ],
+        [
+            [-3, -2, 0],
+            [4, 0, 0], [0, 4, 0], [4, 0, 0],
+            [-3, -2, 0], [0, 4, 0], [12, 8, 16], [0, 4, 0], [-3, -2, 0],
+            [4, 0, 0], [0, 4, 0], [4, 0, 0],
+            [-3, -2, 0],
+        ],
+    ],
+    dtype=np.float32,
+)
+
+
+def bilinear5x5_demosaic(image: torch.Tensor, pattern: BayerPattern) -> torch.Tensor:
+    """13-tap diamond bilinear demosaic of an (H, W) or (H, W, 1) mosaic,
+    clamp-to-edge sampling -> (H, W, 3).  The pixel type of each cell site
+    comes from `pixel_order`, whose BGGR and GBRG rows are the reference's."""
+    x = as_mosaic(image, 'image', dtype=_F32)
+    h, w = x.shape
+    s = Shifter(x, 2, mode='edge')
+    order = pixel_order(pattern)
+    type_tile = np.array([[order[0], order[1]], [order[2], order[3]]], dtype=np.int32)
+    accs = [torch.zeros((h, w), dtype=_F32, device=x.device) for _ in range(3)]
+    for k, (dx, dy) in enumerate(_DIAMOND_OFFSETS):
+        v = s(dy, dx)
+        for c in range(3):
+            accs[c] = accs[c] + v * _tile2x2_map(h, w, _DIAMOND_KERNELS[type_tile, k, c], x.device)
+    norm_tiles = _DIAMOND_KERNELS[type_tile].sum(axis=2)  # (2, 2, 3) sums by site
+    return torch.stack([accs[c] / _tile2x2_map(h, w, norm_tiles[..., c], x.device)
+                        for c in range(3)], dim=-1)
 
 
 def _code_masks(h: int, w: int, pattern: BayerPattern, device) -> dict[int, torch.Tensor]:
@@ -70,6 +137,46 @@ def border_interpolate(image: torch.Tensor, pattern: BayerPattern, border: int) 
     o_g = torch.where(masks[1] | masks[3], i, o_g)
     o_b = torch.where(masks[2], i, o_b)
     return torch.stack((o_r, o_g, o_b), dim=-1)
+
+
+_MEDIAN_OFFSETS = [
+    (-2, 0),
+    (-1, -1), (-1, 1),
+    (0, -2), (0, 0), (0, 2),
+    (1, -1), (1, 1),
+    (2, 0),
+]
+
+
+def pre_median(image: torch.Tensor, pattern: BayerPattern, threshold: float) -> torch.Tensor:
+    """Thresholded 9-point same-colour diamond median on green sites.
+    `threshold` is the already-scaled value (the caller divides by 100)."""
+    x = as_mosaic(image, 'image', dtype=_F32)
+    h, w = x.shape
+    s = Shifter(x, 2)
+    center = s(0, 0)
+
+    meds = []
+    cnt = torch.zeros((h, w), dtype=torch.int32, device=x.device)
+    for dy, dx in _MEDIAN_OFFSETS:
+        v = s(dy, dx)
+        passes = torch.abs(v - center) < threshold
+        meds.append(torch.where(passes, v, 64.0 + v))
+        cnt = cnt + passes.to(torch.int32)
+    med = sort9(meds)
+
+    target_single = med[4] - 64.0
+    # med[(cnt - 1) // 2]: cnt is in [1, 9], so only ranks 0..4 are reachable
+    idx = torch.clamp((cnt - 1) // 2, 0, 4)
+    target_multi = med[0]
+    for r in range(1, 5):
+        target_multi = torch.where(idx == r, med[r], target_multi)
+    target = torch.where(cnt == 1, target_single, target_multi)
+
+    delta = torch.clamp(target - center, -threshold, threshold)
+    masks = _code_masks(h, w, pattern, x.device)
+    color = torch.where(masks[1] | masks[3], center + delta, center)
+    return torch.clamp(color, min=0.0)
 
 
 def ppg_green(image: torch.Tensor, pattern: BayerPattern, clamp_input: bool = False) -> torch.Tensor:
@@ -154,4 +261,31 @@ def ppg_redblue(rgb: torch.Tensor, pattern: BayerPattern, clamp_input: bool = Fa
     return torch.clamp(torch.stack((out_r, g, out_b), dim=-1), min=0.0)
 
 
-__all__ = ['border_interpolate', 'ppg_green', 'ppg_redblue']
+def ppg_demosaic(image: torch.Tensor, pattern: BayerPattern,
+                 median_threshold: float = 0.0) -> torch.Tensor:
+    """Full PPG: border fill -> optional pre-median -> green -> red/blue.
+    `median_threshold` is the raw knob, scaled by 1/100 here."""
+    x = as_mosaic(image, 'image', dtype=_F32)
+    h, w = x.shape
+    src = pre_median(x, pattern, median_threshold / 100.0) if median_threshold > 0.0 else x
+    green = ppg_green(src, pattern)
+
+    # border_interpolate survives only in the 3-px ring, so it runs on 8-px
+    # edge strips and the result is assembled by concatenation.
+    strip = 8
+    if h <= 2 * strip + 2 or w <= 2 * strip + 2:
+        border = border_interpolate(x, pattern, 3)
+        inner = interior_mask(h, w, 3, x.device)
+        temp = torch.where(inner[..., None], green, border)
+    else:
+        top = border_interpolate(x[:strip], pattern, 3)[:3]
+        bottom = border_interpolate(x[-strip:], pattern, 3)[-3:]
+        left = border_interpolate(x[:, :strip], pattern, 3)[3 : h - 3, :3]
+        right = border_interpolate(x[:, -strip:], pattern, 3)[3 : h - 3, -3:]
+        mid = torch.cat([left, green[3 : h - 3, 3 : w - 3], right], dim=1)
+        temp = torch.cat([top, mid, bottom], dim=0)
+    return ppg_redblue(temp, pattern)
+
+
+__all__ = ['bilinear5x5_demosaic', 'border_interpolate', 'ppg_demosaic', 'ppg_green',
+           'ppg_redblue', 'pre_median']

@@ -53,6 +53,18 @@ def decode12_float(packed: torch.Tensor, ids_format: bool = False,
     return out
 
 
+def decode12_half(packed: torch.Tensor, ids_format: bool = False,
+                  scaled: bool = True) -> torch.Tensor:
+    """uint8 packed -> float16 values."""
+    return decode12_float(packed, ids_format, scaled).to(torch.float16)
+
+
+def decode12_u16(packed: torch.Tensor, ids_format: bool = False) -> torch.Tensor:
+    """uint8 packed -> uint16 12-bit values."""
+    p0, p1 = _decode12_pairs(packed, ids_format)
+    return _interleave_pairs(p0, p1).to(torch.uint16)
+
+
 def _encode12_values(v: torch.Tensor, ids_format: bool) -> torch.Tensor:
     """int32 (..., 2N) of 12-bit values -> uint8 (..., 3N)."""
     if v.shape[-1] % 2 != 0:
@@ -97,4 +109,18 @@ def encode(image: torch.Tensor,
     raise ValueError(f'Unsupported input dtype: {image.dtype}')
 
 
-__all__ = ['decode12_float', 'encode', 'encode12_float', 'encode12_u16']
+def decode12(packed: torch.Tensor, output_dtype=torch.float32,
+             format_type: PackedFormat = PackedFormat.Packed12) -> torch.Tensor:
+    """Dtype-dispatching decode: float32, float16 or uint16."""
+    ids = format_type is PackedFormat.Packed12_IDS
+    if output_dtype == torch.float32:
+        return decode12_float(packed, ids_format=ids)
+    if output_dtype == torch.float16:
+        return decode12_half(packed, ids_format=ids)
+    if output_dtype == torch.uint16:
+        return decode12_u16(packed, ids_format=ids)
+    raise ValueError(f'Unsupported output dtype: {output_dtype}')
+
+
+__all__ = ['decode12', 'decode12_float', 'decode12_half', 'decode12_u16', 'encode',
+           'encode12_float', 'encode12_u16']

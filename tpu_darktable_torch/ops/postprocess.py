@@ -1,5 +1,5 @@
-"""Demosaic postprocess: colour smoothing + global green equilibration
-(counterpart of tpu_darktable/ops/postprocess.py:55-171).
+"""Demosaic postprocess: colour smoothing + global and local green
+equilibration (counterpart of tpu_darktable/ops/postprocess.py:55-171).
 
 Colour smoothing runs on the two (C - G) difference planes through
 kernels/color_smooth.py (the hand kernel on the card, its plain version on
@@ -12,7 +12,7 @@ import torch
 
 from ..kernels.color_smooth import color_smooth_diffs
 from .bayer import BayerPattern
-from ._stencil import row_col_iota, site_masks
+from ._stencil import Shifter, row_col_iota, site_masks
 
 _F32 = torch.float32
 
@@ -55,14 +55,57 @@ def green_eq_global(rgb: torch.Tensor, pattern: BayerPattern) -> torch.Tensor:
     return torch.clamp(torch.stack((rgb[..., 0], new_g, rgb[..., 2]), dim=-1), min=0.0)
 
 
+def green_eq_local(rgb: torch.Tensor, pattern: BayerPattern, threshold: float) -> torch.Tensor:
+    """Local green equilibration on green2 (odd-row) sites.  `threshold` is
+    pre-scaled (the caller divides the percent knob by 100)."""
+    rgb = rgb.to(_F32)
+    h, w = rgb.shape[:2]
+    g = rgb[..., 1]
+    s = Shifter(g, 2)
+
+    o1_1, o1_2 = s(-1, -1), s(-1, 1)
+    o1_3, o1_4 = s(1, -1), s(1, 1)
+    o2_1, o2_2 = s(-2, 0), s(2, 0)
+    o2_3, o2_4 = s(0, -2), s(0, 2)
+
+    m1 = (o1_1 + o1_2 + o1_3 + o1_4) / 4.0
+    m2 = (o2_1 + o2_2 + o2_3 + o2_4) / 4.0
+
+    c1 = (
+        torch.abs(o1_1 - o1_2) + torch.abs(o1_1 - o1_3) + torch.abs(o1_1 - o1_4)
+        + torch.abs(o1_2 - o1_3) + torch.abs(o1_3 - o1_4) + torch.abs(o1_2 - o1_4)
+    ) / 6.0
+    c2 = (
+        torch.abs(o2_1 - o2_2) + torch.abs(o2_1 - o2_3) + torch.abs(o2_1 - o2_4)
+        + torch.abs(o2_2 - o2_3) + torch.abs(o2_3 - o2_4) + torch.abs(o2_2 - o2_4)
+    ) / 6.0
+
+    maximum = 1.0
+    ratio = m1 / torch.where(m2 > 0.0, m2, 1.0)
+    apply = (
+        (m2 > 0.0) & (m1 > 0.0) & (ratio < maximum * 2.0)
+        & (g < maximum * 0.95)
+        & (c1 < maximum * threshold)
+        & (c2 < maximum * threshold)
+    )
+    masks = site_masks(h, w, pattern, rgb.device)
+    rows, _ = row_col_iota(h, w, rgb.device)
+    green2 = masks['g'] & ((rows & 1) == 1)
+    new_g = torch.clamp(torch.where(green2 & apply, g * ratio, g), min=0.0)
+    return torch.stack((rgb[..., 0], new_g, rgb[..., 2]), dim=-1)
+
+
 def postprocess(rgb: torch.Tensor, pattern: BayerPattern, color_smoothing_passes: int = 0,
-                green_eq_global_enabled: bool = False) -> torch.Tensor:
-    """N smoothing passes -> global green equilibration.  (Local green
-    equilibration is not on the pipeline's path and is not ported yet.)"""
+                green_eq_local_enabled: bool = False, green_eq_global_enabled: bool = False,
+                green_eq_threshold: float = 0.04) -> torch.Tensor:
+    """N smoothing passes -> global green equilibration -> local green
+    equilibration (threshold in percent)."""
     out = color_smoothing(rgb.to(_F32), color_smoothing_passes)
     if green_eq_global_enabled:
         out = green_eq_global(out, pattern)
+    if green_eq_local_enabled:
+        out = green_eq_local(out, pattern, green_eq_threshold / 100.0)
     return out
 
 
-__all__ = ['color_smoothing', 'green_eq_global', 'postprocess']
+__all__ = ['color_smoothing', 'green_eq_global', 'green_eq_local', 'postprocess']

@@ -1,7 +1,8 @@
 """Tone mapping and image statistics (counterpart of
 tpu_darktable/ops/tonemap.py): bounds and metrics over strided samples,
-the adaptation value, ACES (plain and adaptive), Reinhard, and the shared
-gamma + vibrance + uint8 tail.  Everything keeps its results on the device.
+the adaptation value, the linear, Reinhard, ACES (plain and adaptive) and
+filmic curves, the shared gamma + vibrance + uint8 tail, and the metrics'
+dict helpers.  Everything keeps its results on the device.
 """
 
 from __future__ import annotations
@@ -23,9 +24,12 @@ class TonemapParameters:
     vibrance: float = 0.0
 
 
-def _as_batch(images: torch.Tensor) -> torch.Tensor:
-    """(H, W, 3) or (..., H, W, 3) tensor -> (B, H, W, 3)."""
-    arr = check_channels_last(images, 'images')
+def _as_batch(images) -> torch.Tensor:
+    """list of (H, W, 3) or (..., H, W, 3) tensor -> (B, H, W, 3)."""
+    if isinstance(images, (list, tuple)):
+        arr = torch.stack([check_channels_last(torch.as_tensor(im), 'images[i]') for im in images])
+    else:
+        arr = check_channels_last(torch.as_tensor(images), 'images')
     if arr.ndim == 3:
         arr = arr[None]
     elif arr.ndim < 3:
@@ -33,18 +37,23 @@ def _as_batch(images: torch.Tensor) -> torch.Tensor:
     return arr.reshape((-1,) + tuple(arr.shape[-3:]))
 
 
-def compute_image_bounds(images: torch.Tensor, stride: int = 8) -> torch.Tensor:
+def compute_image_bounds(images, stride: int = 8) -> torch.Tensor:
     """(2,) float32 [min, max] over strided pixels of an image set."""
     sampled = _as_batch(images)[:, ::stride, ::stride]
     return torch.stack((sampled.min(), sampled.max())).to(torch.float32)
 
 
-def compute_image_metrics(images: torch.Tensor, stride: int = 8, min_gray: float = 1e-4) -> torch.Tensor:
+def compute_image_metrics(images, stride: int = 8, min_gray: float = 1e-4,
+                          rescale: bool = False) -> torch.Tensor:
     """(5,) [log_mean, linear_mean, rgb_mean r, g, b] over strided pixels,
-    masking pixels with any channel >= 0.99, normalized by the valid count
-    on the device."""
+    masking pixels with any channel >= 0.99 (after rescaling by the set's
+    bounds if `rescale`), normalized by the valid count on the device."""
     sampled = _as_batch(images)[:, ::stride, ::stride].to(torch.float32)
-    scaled = (sampled - 0.0) / (1.0 - 0.0 + 1e-6)
+    if rescale:
+        b0, b1 = compute_image_bounds(images, stride)
+    else:
+        b0, b1 = 0.0, 1.0
+    scaled = (sampled - b0) / (b1 - b0 + 1e-6)
     mask = torch.where(torch.any(scaled >= 0.99, dim=-1), 0.0, 1.0)
     gray = rgb_to_gray(scaled)
     log_gray = torch.log(torch.clamp(gray, min=min_gray))
@@ -95,6 +104,16 @@ def reinhard_tonemap(image: torch.Tensor, metrics: torch.Tensor,
     return _finish(rgb / (adapt + rgb), params.gamma, params.vibrance)
 
 
+def linear_tonemap(image: torch.Tensor, metrics: torch.Tensor,
+                   params: TonemapParameters) -> torch.Tensor:
+    """Adaptive linear rgb / adapt, clamped to [0, 1] before the uint8 cast."""
+    rgb = check_channels_last(image.to(torch.float32), 'image')
+    adapt = _compute_adaptation(metrics, rgb, params.light_adapt, params.intensity)
+    gamma_corrected = torch.pow(torch.clamp(rgb / adapt, min=0.0), 1.0 / params.gamma)
+    with_vibrance = modify_vibrance(gamma_corrected, params.vibrance)
+    return _to_uint8(torch.clamp(with_vibrance, 0.0, 1.0))
+
+
 # ACES fitted RRT+ODT matrices
 _ACES_INPUT = np.array(
     [[0.59719, 0.35458, 0.04823], [0.07600, 0.90834, 0.01566], [0.02840, 0.13383, 0.83777]],
@@ -106,31 +125,98 @@ _ACES_OUTPUT = np.array(
 )
 
 
-def _aces_curve(rgb: torch.Tensor) -> torch.Tensor:
-    v = color_transform_3x3(rgb, _ACES_INPUT)
+def _rrt_and_odt_fit(v: torch.Tensor) -> torch.Tensor:
     a = v * (v + 0.0245786) - 0.000090537
     b = v * (0.983729 * v + 0.4329510) + 0.238081
-    return color_transform_3x3(a / b, _ACES_OUTPUT)
+    return a / b
+
+
+def _aces_curve(rgb: torch.Tensor) -> torch.Tensor:
+    return color_transform_3x3(_rrt_and_odt_fit(color_transform_3x3(rgb, _ACES_INPUT)),
+                               _ACES_OUTPUT)
+
+
+def _exposed(rgb: torch.Tensor, params: TonemapParameters, metrics) -> torch.Tensor:
+    """The curve's input: rgb * 2^intensity, or rgb over the per-pixel
+    adaptation value when metrics are given."""
+    if metrics is None:
+        exposure = torch.pow(torch.tensor(2.0, device=rgb.device),
+                             torch.tensor(params.intensity, dtype=torch.float32, device=rgb.device))
+        return rgb * exposure
+    return rgb / _compute_adaptation(metrics, rgb, params.light_adapt, params.intensity)
 
 
 def aces_tonemap(image: torch.Tensor, params: TonemapParameters,
                  metrics: torch.Tensor | None = None) -> torch.Tensor:
     """ACES: plain (exposure 2^intensity) or adaptive when metrics given."""
     rgb = check_channels_last(image.to(torch.float32), 'image')
-    if metrics is None:
-        exposure = torch.pow(torch.tensor(2.0, device=rgb.device),
-                             torch.tensor(params.intensity, dtype=torch.float32, device=rgb.device))
-        tonemapped = _aces_curve(rgb * exposure)
-    else:
-        tonemapped = _aces_curve(rgb / _compute_adaptation(
-            metrics, rgb, params.light_adapt, params.intensity))
-    return _finish(tonemapped, params.gamma, params.vibrance)
+    return _finish(_aces_curve(_exposed(rgb, params, metrics)), params.gamma, params.vibrance)
+
+
+def adaptive_aces_tonemap(image: torch.Tensor, metrics: torch.Tensor,
+                          params: TonemapParameters) -> torch.Tensor:
+    """Explicit adaptive ACES entry point."""
+    return aces_tonemap(image, params, metrics)
+
+
+def _filmic_curve(x: torch.Tensor) -> torch.Tensor:
+    """Hable (Uncharted 2) filmic operator, white-point normalized."""
+    a, b, c, d, e, f = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+
+    def hable(v):
+        return ((v * (a * v + c * b) + d * e) / (v * (a * v + b) + d * f)) - e / f
+
+    return hable(x) / hable(torch.tensor(11.2, dtype=torch.float32, device=x.device))
+
+
+def filmic_tonemap(image: torch.Tensor, params: TonemapParameters,
+                   metrics: torch.Tensor | None = None) -> torch.Tensor:
+    """Filmic (Hable curve): plain (exposure 2^intensity) or adaptive when
+    metrics are given."""
+    rgb = check_channels_last(image.to(torch.float32), 'image')
+    return _finish(_filmic_curve(_exposed(rgb, params, metrics)), params.gamma, params.vibrance)
+
+
+def metrics_to_dict(metrics) -> dict:
+    """5-element metrics -> named dict."""
+    m = np.asarray(torch.as_tensor(metrics).cpu())
+    if m.size != 5:
+        raise AssertionError(f'Expected 5 elements, got {m.size}')
+    m = m.reshape(-1)
+    return {
+        'log_mean': float(m[0]),
+        'linear_mean': float(m[1]),
+        'rgb_mean': (float(m[2]), float(m[3]), float(m[4])),
+    }
+
+
+def metrics_from_dict(metrics_dict: dict, device=None) -> torch.Tensor:
+    """Named dict -> (5,) float32 metrics (on `device` if given)."""
+    rgb_mean = metrics_dict['rgb_mean']
+    return torch.tensor([metrics_dict['log_mean'], metrics_dict['linear_mean'],
+                         rgb_mean[0], rgb_mean[1], rgb_mean[2]],
+                        dtype=torch.float32, device=device)
+
+
+def print_metrics(metrics) -> None:
+    d = metrics_to_dict(metrics)
+    rgb = d['rgb_mean']
+    print('Image Metrics:')
+    print(f'  Log Mean: {d["log_mean"]:.4f}')
+    print(f'  Linear Mean: {d["linear_mean"]:.4f}')
+    print(f'  RGB Mean: ({rgb[0]:.4f}, {rgb[1]:.4f}, {rgb[2]:.4f})')
 
 
 __all__ = [
     'TonemapParameters',
     'aces_tonemap',
+    'adaptive_aces_tonemap',
     'compute_image_bounds',
     'compute_image_metrics',
+    'filmic_tonemap',
+    'linear_tonemap',
+    'metrics_from_dict',
+    'metrics_to_dict',
+    'print_metrics',
     'reinhard_tonemap',
 ]

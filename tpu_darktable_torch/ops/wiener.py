@@ -13,8 +13,15 @@ parity budget yet).
 intermediates are kept in float16 and upcast at the point of use; the math
 stays float32.
 
+`use_separable=False` takes the tile-domain route instead: the coset slabs
+go through kernels/wiener_core.py (every K x K tile transformed, gained and
+reconstructed in one kernel on the card; the stacked folded-rDFT einsums,
+its plain version, on the CPU) and the reconstructed slabs are overlap-added
+as ov^2 slices.  It covers both the JAX package's `use_pallas=True` and its
+`use_separable=False` branch, which compute the same thing.
+
 Frames too small for the reflect-pad fast path take the per-coset gather
-path with the rDFT basis (`_rdft2_basis`), as in the JAX package.
+path with the same folded rDFT basis, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..kernels.wiener_core import folded_bases, wiener_tile_core
 
 _F32 = torch.float32
 _EPS = 1e-15
@@ -52,33 +61,6 @@ def _reflect_index(idx: np.ndarray, limit: int) -> np.ndarray:
     idx = np.where(idx < 0, -idx, idx)
     idx = np.where(idx >= limit, 2 * limit - idx - 1, idx)
     return np.clip(idx, 0, limit - 1)
-
-
-def _rdft2_basis(k: int) -> tuple[np.ndarray, np.ndarray, int]:
-    """Real 2-D DFT as analysis (2R, K^2) and synthesis (2R, K^2) matrices
-    over one representative of each conjugate frequency pair."""
-    coords = np.arange(k)
-    xx, yy = np.meshgrid(coords, coords, indexing='ij')
-    flat_x = xx.reshape(-1)
-    flat_y = yy.reshape(-1)
-    reps, self_conj = [], []
-    for u in range(k):
-        for v in range(k):
-            pu, pv = (k - u) % k, (k - v) % k
-            if (u, v) <= (pu, pv):
-                reps.append((u, v))
-                self_conj.append((u, v) == (pu, pv))
-    r = len(reps)
-    ang = np.zeros((r, k * k), dtype=np.float64)
-    for i, (u, v) in enumerate(reps):
-        ang[i] = 2.0 * np.pi * (u * flat_x + v * flat_y) / k
-    cos_rows = np.cos(ang)
-    sin_rows = np.sin(ang)
-    sin_rows[np.asarray(self_conj)] = 0.0
-    analysis = np.concatenate([cos_rows, sin_rows], axis=0)
-    w = np.where(np.asarray(self_conj), 1.0, 2.0)[:, None] / (k * k)
-    synthesis = np.concatenate([cos_rows * w, sin_rows * w], axis=0)
-    return analysis.astype(np.float32), synthesis.astype(np.float32), r
 
 
 def _sep_bases(k: int, wf: np.ndarray, wi: np.ndarray) -> dict:
@@ -205,16 +187,19 @@ def _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
 
 def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
                    overlap_factor: int = 4, fft_scale: float = 0.3,
-                   interp_scale: float = 0.3, spectral_dtype=None,
-                   storage_dtype=None) -> torch.Tensor:
+                   interp_scale: float = 0.3, use_separable: bool = True,
+                   spectral_dtype=None, storage_dtype=None) -> torch.Tensor:
     """Wiener-filter an (H, W) or (H, W, C) image, C in {1, 3}.
 
     Args:
         noise_sigmas: scalar or (C,) per-channel noise sigma.
         tile_size: K in {16, 32}.
         overlap_factor: 2, 4 or 8; tile stride = K / overlap_factor.
+        use_separable: True (default) for the separable row/column einsum
+            route; False for the tile-domain route through
+            kernels/wiener_core.py (the hand kernel on the card).
         spectral_dtype / storage_dtype: optional float16 storage of the
-            spectral / row and tile intermediates (separable path only).
+            spectral / row and tile intermediates (separable route only).
 
     Returns:
         (H, W, C) float32.
@@ -256,19 +241,64 @@ def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
     mrow = _mask_1d(h_pad, grid_h)
     mcol = _mask_1d(w_pad, grid_w)
 
-    # Reflect-pad once so every coset slab is a contiguous slice; frames
-    # narrower than the reflection take the gather path below.
-    n_ty_max = -(-grid_h // ov)
-    n_tx_max = -(-grid_w // ov)
-    pad_lo = k
-    pad_hi_r = max(2 * k, n_ty_max * k - stride - h)
-    pad_hi_c = max(2 * k, n_tx_max * k - stride - w)
-    if h > pad_hi_r and w > pad_hi_c:
-        xr = torch.cat([x[1 : pad_lo + 1].flip(0), x, x.flip(0)[:pad_hi_r]], dim=0)
-        xr = torch.cat([xr[:, 1 : pad_lo + 1].flip(1), xr, xr.flip(1)[:, :pad_hi_c]], dim=1)
-        return _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
-                                 spectral_dtype=spectral_dtype, storage_dtype=storage_dtype)
+    padded = _reflect_pad(x, k, ov)
+    if padded is not None:
+        xr, n_ty, n_tx = padded
+        if use_separable:
+            return _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
+                                     spectral_dtype=spectral_dtype, storage_dtype=storage_dtype)
+        recon = wiener_tile_core(_coset_slabs(xr, k, ov, n_ty, n_tx), sigmas * sigmas, wf, wi, k=k)
+        return _overlap_add(recon, h, w, c, k, ov) / (
+            (mrow[:, None] * mcol[None, :])[k : k + h, k : k + w, None] + _EPS)
     return _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol)
+
+
+def _reflect_pad(x: torch.Tensor, k: int, ov: int):
+    """Reflect-pad an (H, W, C) image once so that every coset slab is a
+    contiguous slice: K rows above (mirror without the edge), and below
+    enough for the maximal coset's n_ty tiles (mirror with the edge), the
+    reference's asymmetric reflection.  Returns (xr, n_ty, n_tx), or None
+    for a frame narrower than its reflection (the gather path's case)."""
+    h, w, _ = x.shape
+    stride = k // ov
+    n_ty = -(-((h + k + stride - 1) // stride + ov) // ov)
+    n_tx = -(-((w + k + stride - 1) // stride + ov) // ov)
+    pad_hi_r = max(2 * k, n_ty * k - stride - h)
+    pad_hi_c = max(2 * k, n_tx * k - stride - w)
+    if not (h > pad_hi_r and w > pad_hi_c):
+        return None
+    xr = torch.cat([x[1 : k + 1].flip(0), x, x.flip(0)[:pad_hi_r]], dim=0)
+    xr = torch.cat([xr[:, 1 : k + 1].flip(1), xr, xr.flip(1)[:, :pad_hi_c]], dim=1)
+    return xr, n_ty, n_tx
+
+
+def _coset_slabs(xr: torch.Tensor, k: int, ov: int, n_ty: int, n_tx: int) -> torch.Tensor:
+    """The channel-planar coset slabs (C ov^2, n_ty K, n_tx K) of the
+    reflect-padded image: coset (ry, rx) of channel ch at index
+    (ch ov + ry) ov + rx, every coset padded to the maximal tile count."""
+    stride = k // ov
+    return torch.stack([
+        xr[ry * stride : ry * stride + n_ty * k, rx * stride : rx * stride + n_tx * k, ch]
+        for ch in range(xr.shape[2]) for ry in range(ov) for rx in range(ov)])
+
+
+def _overlap_add(recon: torch.Tensor, h: int, w: int, c: int, k: int, ov: int) -> torch.Tensor:
+    """Sum the reconstructed slabs back to (H, W, C): output pixel (r, c)
+    takes coset (ry, rx) at slab row K + r - ry stride; the padding tiles
+    land past the crop."""
+    stride = k // ov
+    chans = []
+    g = 0
+    for _ in range(c):
+        acc = 0.0
+        for ry in range(ov):
+            r0 = k - ry * stride
+            for rx in range(ov):
+                c0 = k - rx * stride
+                acc = acc + recon[g, r0 : r0 + h, c0 : c0 + w]
+                g += 1
+        chans.append(acc)
+    return torch.stack(chans, dim=-1)
 
 
 def _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol):
@@ -277,18 +307,7 @@ def _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol):
     dev = x.device
     stride = k // ov
     h_pad, w_pad = h + 2 * k, w + 2 * k
-    analysis, synthesis, _ = _rdft2_basis(k)
-    n_rep = analysis.shape[0] // 2
-    w2f = np.outer(wf, wf).astype(np.float64)
-    w2i = np.outer(wi, wi).astype(np.float64)
-    ana_w = analysis.astype(np.float64) * w2f.reshape(1, -1)
-    ana3 = torch.as_tensor(np.concatenate(
-        [ana_w, np.full((1, k * k), 1.0 / (k * k))], axis=0).astype(np.float32).reshape(-1, k, k),
-        device=dev)
-    syn3 = torch.as_tensor((synthesis.astype(np.float64) * w2i.reshape(1, -1))
-                           .astype(np.float32).reshape(-1, k, k), device=dev)
-    a0 = torch.as_tensor(ana_w.sum(axis=1).astype(np.float32), device=dev)
-    mc = torch.as_tensor((w2f * w2i).astype(np.float32), device=dev)
+    ana3, syn3, a0, mc, n_rep = folded_bases(k, wf, wi, dev)
     sig2 = (sigmas * sigmas)[None, None, :, None]
 
     acc = torch.zeros((h_pad, w_pad, c), dtype=_F32, device=dev)

@@ -3,6 +3,7 @@
 from .camera_settings import CameraSettings, load_camera_settings_from_dir
 from .config import Debayer, ImageProcessingSettings, ToneMapper
 from .image_processor import ImageProcessor, ImageSizeMismatchError, build_pipeline_fn
+from .presets import get_preset, presets
 from .transform import ImageTransform
 
 __all__ = [
@@ -14,5 +15,7 @@ __all__ = [
     'ImageTransform',
     'ToneMapper',
     'build_pipeline_fn',
+    'get_preset',
     'load_camera_settings_from_dir',
+    'presets',
 ]

@@ -1,13 +1,17 @@
 """The pipeline orchestrator (counterpart of
 tpu_darktable/pipeline/image_processor.py:55-549).
 
-    decode12 -> WB -> RCD -> postprocess -> bounds/EMA -> normalize ->
+    decode12 -> WB -> demosaic -> postprocess -> bounds/EMA -> normalize ->
     Wiener(log LAB-L) -> bilateral -> metrics/EMA -> tonemap -> uint8
 
 The per-frame stages run as two Python loops over the batch, split by the
 batch-global bounds EMA, one frame at a time so that live memory stays one
 frame deep.  The EMA state (bounds (2,), metrics (5,)) stays on the device
 between batches: there is no host sync on the path.
+
+The piecewise methods (load_bytes / debayer / process_rgb / tonemap) run
+the same stages one call at a time through the per-op workspace classes,
+with the caller carrying bounds and metrics; the viewer drives them.
 """
 
 from __future__ import annotations
@@ -16,8 +20,12 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..debayer import PPG, RCD, PostProcess
+from ..denoise import Wiener
+from ..local_contrast import Bilateral
 from ..ops import bilateral as _bilateral
 from ..ops import color as _color
+from ..ops import demosaic as _demosaic
 from ..ops import packed as _packed
 from ..ops import postprocess as _postprocess
 from ..ops import rcd as _rcd
@@ -28,7 +36,7 @@ from ..ops.bayer import BayerPattern, PackedFormat
 from .camera_settings import CameraSettings
 from .config import Debayer, ImageProcessingSettings, ToneMapper
 from .transform import ImageTransform, transform
-from .util import lerp, normalize_image
+from .util import lerp, normalize_image, resize_longest_edge
 
 
 class ImageSizeMismatchError(Exception):
@@ -42,15 +50,25 @@ class ImageSizeMismatchError(Exception):
 
 
 def _check_ported(settings: ImageProcessingSettings) -> None:
-    if settings.debayer is not Debayer.rcd:
-        raise NotImplementedError(
-            f'debayer={settings.debayer.name} is not ported yet (ROADMAP Queue 1 #10); use rcd')
     if settings.enable_laplacian:
         raise NotImplementedError('the local Laplacian is not ported yet (ROADMAP Queue 1 #10)')
-    if settings.tone_mapping not in (ToneMapper.reinhard, ToneMapper.aces,
-                                     ToneMapper.adaptive_aces):
-        raise NotImplementedError(
-            f'tone_mapping={settings.tone_mapping.name} is not ported yet (ROADMAP Queue 1 #10)')
+
+
+def _tonemap_dispatch(settings: ImageProcessingSettings, rgb, metrics):
+    params = _tonemap.TonemapParameters(settings.tone_gamma, settings.tone_intensity,
+                                        settings.light_adapt, settings.vibrance)
+    match settings.tone_mapping:
+        case ToneMapper.reinhard:
+            return _tonemap.reinhard_tonemap(rgb, metrics, params)
+        case ToneMapper.linear:
+            return _tonemap.linear_tonemap(rgb, metrics, params)
+        case ToneMapper.aces:
+            return _tonemap.aces_tonemap(rgb, params)
+        case ToneMapper.adaptive_aces:
+            return _tonemap.aces_tonemap(rgb, params, metrics)
+        case ToneMapper.filmic:
+            return _tonemap.filmic_tonemap(rgb, params, metrics)
+    raise AssertionError(f'Invalid tone mapping: {settings.tone_mapping}')
 
 
 def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, int],
@@ -66,21 +84,30 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
     width, height = image_size
     ids = packed_format is PackedFormat.Packed12_IDS
     sdt = torch.float16 if settings.denoise_f16 else None
-    params = _tonemap.TonemapParameters(settings.tone_gamma, settings.tone_intensity,
-                                        settings.light_adapt, settings.vibrance)
 
     def _sample_plane(rgb):
         return rgb[::8, ::8]
+
+    def _demosaic_one(bayer):
+        if settings.debayer == Debayer.bilinear:
+            return _demosaic.bilinear5x5_demosaic(bayer, bayer_pattern)
+        if settings.debayer == Debayer.rcd:
+            return _rcd.rcd_demosaic(bayer, bayer_pattern)
+        if settings.debayer == Debayer.ppg:
+            return _demosaic.ppg_demosaic(bayer, bayer_pattern,
+                                          median_threshold=settings.ppg_median_threshold)
+        raise AssertionError(f'Invalid debayer method: {settings.debayer}')
 
     def _front_one(frame_rows, wb_gains):
         bayer = _packed.decode12_float(frame_rows, ids_format=ids)
         if has_white_balance:
             bayer = _wb.apply_white_balance(bayer, wb_gains, bayer_pattern)
-        rgb = _rcd.rcd_demosaic(bayer, bayer_pattern)
+        rgb = _demosaic_one(bayer)
         if settings.postprocess:
             rgb = _postprocess.postprocess(
                 rgb, bayer_pattern, color_smoothing_passes=settings.color_smoothing_passes,
-                green_eq_global_enabled=True)
+                green_eq_local_enabled=False, green_eq_global_enabled=True,
+                green_eq_threshold=settings.green_eq_threshold)
         return rgb
 
     # Each luminance stage extracts LAB L and writes it back.  When the
@@ -117,16 +144,6 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
             rgb = _bilateral_one(rgb)
         return rgb
 
-    def _tonemap_batch(rgb, metrics):
-        match settings.tone_mapping:
-            case ToneMapper.reinhard:
-                return _tonemap.reinhard_tonemap(rgb, metrics, params)
-            case ToneMapper.aces:
-                return _tonemap.aces_tonemap(rgb, params)
-            case ToneMapper.adaptive_aces:
-                return _tonemap.aces_tonemap(rgb, params, metrics)
-        raise AssertionError(f'Invalid tone mapping: {settings.tone_mapping}')
-
     def fused(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
         rows = bytes_batch.reshape(-1, height, (width * 3) // 2)
         n = rows.shape[0]
@@ -150,7 +167,7 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
             rgb = normalize_image(rgb, bounds)
 
         metrics = lerp(metrics_in, _tonemap.compute_image_metrics(samples, stride=1), alpha)
-        return _tonemap_batch(rgb, metrics), bounds, metrics
+        return _tonemap_dispatch(settings, rgb, metrics), bounds, metrics
 
     return fused
 
@@ -176,11 +193,39 @@ class ImageProcessor:
             None if white_balance is None
             else torch.as_tensor(white_balance, dtype=torch.float32, device=self.device)
         )
-        self._fused = self._build()
+        self._rebuild_workspaces()
 
-    def _build(self):
-        return build_pipeline_fn(self.settings, self.image_size, self.bayer_pattern,
-                                 self.packed_format, self.white_balance is not None)
+    def _rebuild_workspaces(self):
+        """The per-op workspaces of the piecewise API and the batched
+        pipeline, for the current settings."""
+        s = self.settings
+        self._fused = build_pipeline_fn(s, self.image_size, self.bayer_pattern,
+                                        self.packed_format, self.white_balance is not None)
+        self.bil_workspace = Bilateral(self.device, self.image_size, sigma_s=s.bil_sigma_spatial,
+                                       sigma_r=s.bil_sigma_luminance)
+        self.rcd_workspace = RCD(self.device, self.image_size, self.bayer_pattern)
+        self.ppg_workspace = PPG(self.device, self.image_size, self.bayer_pattern,
+                                 median_threshold=s.ppg_median_threshold)
+        self.postprocess_workspace = PostProcess(
+            self.device, self.image_size, self.bayer_pattern,
+            color_smoothing_passes=s.color_smoothing_passes, green_eq_local=False,
+            green_eq_global=True, green_eq_threshold=s.green_eq_threshold)
+        sdt = torch.float16 if s.denoise_f16 else None
+        self.wiener_workspace = Wiener(self.device, self.image_size,
+                                       overlap_factor=s.denoise_overlap,
+                                       spectral_dtype=sdt, storage_dtype=sdt)
+
+    def __repr__(self) -> str:
+        wb = self.white_balance
+        wb_str = 'None' if wb is None else f'({wb[0]:.3f}, {wb[1]:.3f}, {wb[2]:.3f})'
+        transform_str = (
+            f'{self.transforms.name}' if isinstance(self.transforms, ImageTransform)
+            else f'{{{", ".join(f"{k}: {v.name}" for k, v in self.transforms.items())}}}')
+        return (
+            f'ImageProcessor(size={self.image_size}, bayer={self.bayer_pattern.name}, '
+            f'format={self.packed_format.name}, device={self.device}, wb={wb_str}, '
+            f'padding={self.padding}, transform={transform_str}, '
+            f'debayer={self.settings.debayer.name}, tonemap={self.settings.tone_mapping.name})')
 
     @staticmethod
     def from_camera_settings(camera_settings: CameraSettings, device=None) -> 'ImageProcessor':
@@ -194,7 +239,11 @@ class ImageProcessor:
     def update_settings(self, settings: ImageProcessingSettings) -> None:
         if settings != self.settings:
             self.settings = settings
-            self._fused = self._build()
+            self._rebuild_workspaces()
+
+    @property
+    def final_size(self) -> tuple[int, int]:
+        return resize_longest_edge(self.image_size, self.settings.resize_width)
 
     @property
     def expected_bytes(self) -> int:
@@ -209,6 +258,69 @@ class ImageProcessor:
         if isinstance(data, np.ndarray):
             data = torch.from_numpy(np.ascontiguousarray(data))
         return data.to(device=self.device, dtype=torch.uint8)
+
+    # ---- piecewise API ----
+
+    def load_bytes(self, data) -> torch.Tensor:
+        """Packed bytes of one frame -> the (H, W) float32 mosaic."""
+        data = self._as_bytes(data)
+        if data.numel() != self.expected_bytes:
+            raise self._mismatch(
+                f'Image size mismatch: expected {self.expected_bytes} bytes for '
+                f'{self.image_size} {self.packed_format.name} with {self.padding} padding, '
+                f'got {data.numel()} bytes. ')
+        if self.padding > 0:
+            data = data[: -self.padding]
+        decoded = _packed.decode12(data, output_dtype=torch.float32,
+                                   format_type=self.packed_format)
+        width, height = self.image_size
+        if decoded.numel() != width * height:
+            raise self._mismatch(
+                f'Decoded image size mismatch: expected {width * height} pixels '
+                f'({width}x{height}), got {decoded.numel()} pixels.')
+        return decoded.reshape(height, width)
+
+    def load_image(self, data) -> torch.Tensor:
+        return self.debayer(self.load_bytes(data))
+
+    def debayer(self, bayer_image: torch.Tensor) -> torch.Tensor:
+        """White balance, demosaic and postprocess of an (H, W) mosaic."""
+        if bayer_image.ndim != 2:
+            raise AssertionError(
+                f'Bayer image must have 2 dimensions, got {tuple(bayer_image.shape)}')
+        bayer_image = bayer_image.to(self.device)
+        if self.white_balance is not None:
+            bayer_image = _wb.apply_white_balance(bayer_image, self.white_balance,
+                                                  self.bayer_pattern)
+        if self.settings.debayer == Debayer.bilinear:
+            rgb_raw = _demosaic.bilinear5x5_demosaic(bayer_image[..., None], self.bayer_pattern)
+        elif self.settings.debayer == Debayer.rcd:
+            rgb_raw = self.rcd_workspace.process(bayer_image[..., None])
+        elif self.settings.debayer == Debayer.ppg:
+            rgb_raw = self.ppg_workspace.process(bayer_image[..., None])
+        else:
+            raise AssertionError(f'Invalid debayer method: {self.settings.debayer}')
+        if self.settings.postprocess:
+            rgb_raw = self.postprocess_workspace.process(rgb_raw)
+        return rgb_raw
+
+    def process_rgb(self, rgb_raw: torch.Tensor, bounds=None) -> torch.Tensor:
+        """Normalize by `bounds` if given, then the enabled luminance stages."""
+        _check_ported(self.settings)
+        if bounds is not None:
+            rgb_raw = normalize_image(rgb_raw, bounds)
+        if self.settings.enable_denoise:
+            rgb_raw = self.wiener_workspace.process_log_luminance(rgb_raw, self.settings.denoise)
+        if self.settings.enable_bilateral:
+            rgb_raw = self.bil_workspace.process_rgb(rgb_raw, self.settings.bilateral)
+        return rgb_raw
+
+    def tonemap(self, rgb_raw: torch.Tensor, metrics=None) -> torch.Tensor:
+        if metrics is None:
+            metrics = _tonemap.compute_image_metrics([rgb_raw], stride=4, min_gray=1e-4)
+        return _tonemap_dispatch(self.settings, rgb_raw, metrics)
+
+    # ---- batched API ----
 
     def process_batch(self, bytes_batch) -> torch.Tensor:
         """Run the pipeline on a (B, n_bytes) uint8 batch (numpy or tensor),
