@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
      against the stated tolerance, kernel / plain time by CUDA events, the
      time of PyTorch library calls computing the same function where there
      are such (conv3d for the grid blur, the two dense matmuls for the
-     Wiener core), and the bound (the least time the card could take: bytes
+     Wiener core), NLM also on one plane (C = 1), the wavelet also at 5 and
+     7 levels and timed at every depth from 0 to 8, and the bound (the least time the card could take: bytes
      over 3.35 TB/s or operations over 33.5 T/s, whichever is larger).
   3. the RCD golden cases of tests/goldens/pipeline_goldens.npz on the card
      (1 uint8 count).
@@ -243,10 +244,14 @@ def phase_kernels(dev):
     # Per pixel and offset (49 at sr=3): d2 3C = 9, the separable 3x3 box
     # sum 6, the weight 3 (negate, multiply, exp), acc and wsum 2C + 1 = 7:
     # 25; plus C divides.  Three planes read once and written once.
+    # Also held to the tolerance: one plane alone (C = 1, the luminance call).
+    plane1 = planes[:1].contiguous()
     record('nlm_core', 'tpu_darktable_torch/csrc/nlm.cu', 'tpu_darktable/kernels/nlm.py:87',
            lambda: nlm_core(planes, inv_h2), lambda: nlm_core_plain(planes, inv_h2),
            lambda a, b: (a - b).abs().max().item(), 1e-5,
-           24 * px, (49 * 25 + 3) * px)
+           24 * px, (49 * 25 + 3) * px,
+           also=[(lambda: nlm_core(plane1, 3 * inv_h2), lambda: nlm_core_plain(plane1, 3 * inv_h2))])
+    log(f'nlm_core on one plane (C = 1): {cuda_ms(lambda: nlm_core(plane1, 3 * inv_h2)):.4f} ms')
     thr = torch.full((3,), 3.0 * 0.05, device=dev)
     # Per level, pixel and channel: two 5-tap blurs (9 ops each), the
     # detail 1, the shrink 5 (abs, subtract, max, sign, multiply), the
@@ -256,7 +261,14 @@ def phase_kernels(dev):
            lambda: wavelet_core(planes, thr, levels=4),
            lambda: wavelet_core_plain(planes, thr, levels=4),
            lambda a, b: (a - b).abs().max().item(), 1e-6,
-           24 * px, 3 * (4 * 25 + 1) * px)
+           24 * px, 3 * (4 * 25 + 1) * px,
+           also=[(lambda lv=lv: wavelet_core(planes, thr, levels=lv),
+                  lambda lv=lv: wavelet_core_plain(planes, thr, levels=lv)) for lv in (5, 7)])
+    # What a level costs: in the shared-memory tile (the first ones) and as
+    # two passes through HBM (the differences further up).
+    sweep = {lv: cuda_ms(lambda: wavelet_core(planes, thr, levels=lv), iters=10, warmup=2)
+             for lv in range(9)}
+    log('wavelet_core ms by levels: ' + ', '.join(f'{lv}: {t:.4f}' for lv, t in sweep.items()))
     record_wiener_core(dev, record, rgb_n)
     # The general path's grid: sigma_s = 3 does not divide 4096.
     gx3, gy3, gz3 = compute_grid_size(W, H, 3.0, 0.2)

@@ -1,8 +1,8 @@
 """The CUDA sources of the port, compiled for the host and run on the CPU.
 
 There is no nvcc here, so each csrc/*.cu is rewritten into C++ against a
-small serial emulation of CUDA (EMU_HEADER below: one thread a block
-for kernels with shared memory, every thread in turn otherwise),
+small emulation of CUDA (EMU_HEADER below: every block runs its blockDim
+threads as fibres with a working __syncthreads(), blocks one after another),
 built with g++ -ffp-contract=off (like nvcc --fmad=false) and called
 through the same C entry points the wrappers use.  It checks the kernels'
 indexing, halos and arithmetic against their plain versions, bit for bit
@@ -35,45 +35,87 @@ from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
 from tpu_darktable_torch.ops.wiener import _gaussian_window
 
 torch.set_num_threads(1)
-# Serial CPU emulation of the CUDA subset the csrc/*.cu sources use.
-EMU_HEADER = r'''#pragma once
+# CPU emulation of the CUDA subset the csrc/*.cu sources use.  A block's
+# threads are ucontext fibres on one OS thread: each runs until it returns or
+# reaches __syncthreads(), which yields to the scheduler; the scheduler resumes
+# the threads in index order, round after round, so a barrier holds and the
+# run is deterministic.  Dynamic shared memory starts as NaN in every block, so
+# a read of a value no thread wrote shows.  No warp shuffles.
+EMU_HEADER = r"""#pragma once
 #include <cmath>
 #include <cstddef>
+#include <limits>
 #include <vector>
 #include <algorithm>
 #include <functional>
+#include <ucontext.h>
 using std::min; using std::max;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __shared__ static
 struct dim3 { unsigned x, y, z; dim3(unsigned a=1, unsigned b=1, unsigned c=1): x(a), y(b), z(c) {} };
 static dim3 threadIdx(0,0,0), blockIdx(0,0,0), blockDim(1,1,1), gridDim(1,1,1);
 static float* emu_smem = nullptr;
-inline void __syncthreads() {}
 typedef void* cudaStream_t;
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
-// Kernels with shared memory run one thread a block (their loops stride by
-// blockDim); kernels without it run every thread of the block in turn.
-inline void emu_launch(dim3 g, unsigned threads, size_t smem, std::function<void()> body) {
-  std::vector<float> buf(smem / sizeof(float) + 1);
-  emu_smem = buf.data(); gridDim = g;
-  const unsigned nt = smem ? 1 : threads;
-  blockDim = dim3(nt, 1, 1);
-  for (unsigned z = 0; z < g.z; ++z) for (unsigned y = 0; y < g.y; ++y) for (unsigned x = 0; x < g.x; ++x)
-    for (unsigned t = 0; t < nt; ++t) { blockIdx = dim3(x, y, z); threadIdx = dim3(t, 0, 0); body(); }
+
+struct EmuCfg { dim3 grid, block; size_t smem; };
+inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t smem = 0, cudaStream_t = nullptr) { return {g, b, smem}; }
+
+struct EmuFibre { ucontext_t ctx; bool done; };
+static ucontext_t emu_main;
+static std::vector<EmuFibre> emu_fibres;
+static std::vector<char> emu_stacks;
+static unsigned emu_cur = 0;
+static const std::function<void()>* emu_body = nullptr;
+inline void __syncthreads() { swapcontext(&emu_fibres[emu_cur].ctx, &emu_main); }
+static void emu_entry() {
+  (*emu_body)();
+  emu_fibres[emu_cur].done = true;
+  swapcontext(&emu_fibres[emu_cur].ctx, &emu_main);
 }
-'''
+inline void emu_launch(EmuCfg c, std::function<void()> body) {
+  const size_t STACK = 256 * 1024;
+  const unsigned nt = c.block.x * c.block.y * c.block.z;
+  std::vector<float> buf(c.smem / sizeof(float) + 1);
+  emu_smem = buf.data(); gridDim = c.grid; blockDim = c.block; emu_body = &body;
+  emu_fibres.resize(nt);
+  if (emu_stacks.size() < nt * STACK) emu_stacks.resize(nt * STACK);
+  for (unsigned z = 0; z < c.grid.z; ++z) for (unsigned y = 0; y < c.grid.y; ++y)
+  for (unsigned x = 0; x < c.grid.x; ++x) {
+    std::fill(buf.begin(), buf.end(), std::numeric_limits<float>::quiet_NaN());
+    for (unsigned t = 0; t < nt; ++t) {
+      EmuFibre& f = emu_fibres[t];
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = emu_stacks.data() + t * STACK;
+      f.ctx.uc_stack.ss_size = STACK;
+      f.ctx.uc_link = nullptr;
+      f.done = false;
+      makecontext(&f.ctx, emu_entry, 0);
+    }
+    for (unsigned live = nt; live > 0;)
+      for (unsigned t = 0; t < nt; ++t) {
+        if (emu_fibres[t].done) continue;
+        emu_cur = t; blockIdx = dim3(x, y, z);
+        threadIdx = dim3(t % c.block.x, t / c.block.x % c.block.y, t / (c.block.x * c.block.y));
+        swapcontext(&emu_main, &emu_fibres[t].ctx);
+        if (emu_fibres[t].done) --live;
+      }
+  }
+}
+"""
 
 
 def _launch(m):
-    name, cfg, args = m.group(1), [p.strip() for p in m.group(2).split(',')], m.group(3)
-    smem = cfg[2] if len(cfg) > 2 else '0'
-    return f'emu_launch(dim3({cfg[0]}), {cfg[1]}, {smem}, [&]{{ {name}({args}); }});'
+    """`kernel<T...><<<grid, block, smem, stream>>>(args);` -> an emu_launch
+    call; C++ itself parses the launch configuration (dim3 or int)."""
+    return f'emu_launch(emu_cfg({m.group(2)}), [&]{{ {m.group(1)}({m.group(3)}); }});'
 
 
 @pytest.fixture(scope='module')
@@ -86,7 +128,7 @@ def emu_lib(tmp_path_factory):
     for cu in sorted(CSRC.glob('*.cu')):
         s = cu.read_text().replace('#include <cuda_runtime.h>', '#include "cuda_emu.h"')
         s = s.replace('extern __shared__ float smem[];', 'float* smem = emu_smem;')
-        s = re.sub(r'(\w+)<<<(.*?)>>>\((.*?)\);', _launch, s, flags=re.S)
+        s = re.sub(r'(\w+(?:<[^<>();]*>)?)\s*<<<(.*?)>>>\((.*?)\);', _launch, s, flags=re.S)
         cpp = out / f'{cu.stem}.cpp'
         cpp.write_text(s)
         so = out / f'lib{cu.stem}.so'
@@ -155,10 +197,18 @@ def test_grid_blur_source_on_host(emu_lib, rng, shape, z_mode):
     np.testing.assert_array_equal(out, ref.numpy())
 
 
-@pytest.mark.parametrize('shape,levels', [((3, 70, 96), 4), ((2, 33, 40), 3), ((1, 40, 150), 5),
-                                          ((1, 20, 30), 6), ((1, 9, 7), 1)])
+@pytest.mark.parametrize('shape,levels', [
+    ((3, 70, 96), 4), ((2, 33, 40), 3), ((1, 40, 150), 5), ((1, 20, 30), 6), ((1, 9, 7), 1),
+    # 3 x 4 tiles, ragged each way, two inside blocks next to rim blocks: every depth
+    *[((2, 150, 200), lv) for lv in range(8)],
+    # narrower than the deepest step; exactly one tile; one pixel past a tile each way
+    ((1, 9, 7), 7), ((3, 64, 64), 2), ((1, 65, 129), 3), ((1, 1, 1), 2), ((2, 140, 70), 1),
+    ((1, 3, 300), 30),
+    # two ragged strips of the one-launch levels (steps 8 to 64), then a two-pass level
+    ((1, 40, 300), 6), ((2, 21, 530), 7), ((1, 20, 530), 8)])
 def test_wavelet_source_on_host(emu_lib, rng, shape, levels):
-    """The shared-memory cascade (levels <= 4) and the deeper HBM passes,
+    """The shared-memory tile of the first levels (inside and rim blocks),
+    the one-launch levels after it and the two-pass levels after those,
     against the plain version: bit-exact."""
     x = rng.random(shape).astype(np.float32)
     thr = np.array([0.15, 0.1, 0.2][: shape[0]], np.float32)
@@ -171,8 +221,15 @@ def test_wavelet_source_on_host(emu_lib, rng, shape, levels):
     np.testing.assert_array_equal(out, ref.numpy())
 
 
-@pytest.mark.parametrize('shape,sr,pr', [((3, 40, 48), 3, 1), ((1, 37, 70), 2, 2),
-                                         ((2, 20, 33), 1, 1)])
+@pytest.mark.parametrize('shape,sr,pr', [
+    ((3, 40, 48), 3, 1), ((1, 37, 70), 2, 2), ((2, 20, 33), 1, 1),
+    # the register kernel (C = 3 and 1 at sr=3, pr=1): an inside block among
+    # rim blocks with ragged tiles each way, H and W no multiples of the
+    # tile or of a thread's 4 rows, images smaller than one tile
+    ((3, 70, 101), 3, 1), ((1, 67, 99), 3, 1), ((3, 9, 13), 3, 1), ((1, 5, 40), 3, 1),
+    ((3, 33, 31), 3, 1), ((1, 1, 1), 3, 1),
+    # the general kernel beside it: other radii, C = 3 and 4, sr=3 with pr=2
+    ((3, 35, 45), 2, 1), ((4, 21, 37), 3, 1), ((1, 41, 39), 3, 2), ((3, 6, 5), 1, 0)])
 def test_nlm_source_on_host(emu_lib, rng, shape, sr, pr):
     """Against the plain version: atol 1e-6 (libm expf against torch.exp;
     everything else sums in the same order)."""

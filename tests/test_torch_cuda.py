@@ -44,21 +44,34 @@ def test_grid_blur_on_card(dev, z_mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('levels', [1, 4, 6])
-def test_wavelet_on_card(dev, levels):
-    """The shared-memory cascade and the deeper HBM passes: 1e-6."""
-    x = _rand(2, (3, 130, 200), dev)
-    thr = torch.tensor([0.15, 0.1, 0.2], device=dev)
+@pytest.mark.parametrize('shape,levels', [
+    ((3, 130, 200), 1), ((3, 130, 200), 4), ((3, 130, 200), 6),
+    *[((2, 150, 200), lv) for lv in range(8)],   # inside blocks next to rim blocks, every depth
+    ((1, 9, 7), 7), ((3, 64, 64), 2), ((1, 65, 129), 3), ((1, 1, 1), 2), ((1, 3, 300), 30),
+    ((1, 40, 300), 6), ((2, 21, 530), 7), ((1, 20, 530), 8), ((3, 3000, 4096), 6)])
+def test_wavelet_on_card(dev, shape, levels):
+    """The shared-memory tile of the first levels, the one-launch levels and
+    the two-pass levels, on ragged tiles and strips, narrow images and at
+    full width: 1e-6."""
+    x = _rand(2, shape, dev)
+    thr = torch.tensor([0.15, 0.1, 0.2][:shape[0]], device=dev)
     err = wavelet_core(x, thr, levels=levels) - wavelet_core_plain(x, thr, levels=levels)
     assert err.abs().max().item() <= 1e-6
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('c,sr,pr', [(3, 3, 1), (1, 2, 2)])
-def test_nlm_on_card(dev, c, sr, pr):
+@pytest.mark.parametrize('shape,sr,pr', [
+    ((3, 130, 200), 3, 1), ((1, 130, 200), 2, 2),
+    # the register kernel: ragged tiles, images smaller than a tile, C = 1
+    ((3, 70, 101), 3, 1), ((1, 67, 99), 3, 1), ((3, 9, 13), 3, 1), ((1, 5, 40), 3, 1),
+    ((3, 33, 31), 3, 1), ((1, 1, 1), 3, 1),
+    # the general kernel
+    ((2, 20, 33), 1, 1), ((3, 35, 45), 2, 1), ((4, 21, 37), 3, 1), ((1, 41, 39), 3, 2),
+    ((3, 6, 5), 1, 0)])
+def test_nlm_on_card(dev, shape, sr, pr):
     """Against the plain version: 1e-5 (CUDA expf against torch.exp)."""
-    x = _rand(3, (c, 130, 200), dev)
-    inv_h2 = 1.0 / (0.05 * 0.05 * (2 * pr + 1) ** 2 * c)
+    x = _rand(3, shape, dev)
+    inv_h2 = 1.0 / (0.05 * 0.05 * (2 * pr + 1) ** 2 * shape[0])
     err = (nlm_core(x, inv_h2, search_radius=sr, patch_radius=pr)
            - nlm_core_plain(x, inv_h2, search_radius=sr, patch_radius=pr))
     assert err.abs().max().item() <= 1e-5

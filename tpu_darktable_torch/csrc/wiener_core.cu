@@ -30,7 +30,7 @@
 // The cos/sin table and both windows come from the host (float64 there,
 // rounded once to float32); every sum runs over its even or odd indices in
 // ascending order, so the result does not depend on the block size, and the
-// host emulation (one thread a block) computes the same bits.
+// host emulation computes the same bits.
 
 #include <cuda_runtime.h>
 

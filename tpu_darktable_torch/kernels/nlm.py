@@ -6,11 +6,16 @@ its edge-clamped shift summed over channels, zero outside the image,
 box-summed over the (2pr+1)^2 patch, weighted by exp(-dist * inv_h2) and
 accumulated with the shifted image; out = acc / wsum.
 
-On the H100 the search is bound by its ~26 float ops a pixel and offset
-(~1.3k a pixel at sr=3, pr=1, C=3), not by its 8C bytes a pixel.  The
-kernel keeps a tile, its sr + pr halo and the tile's accumulators in
-shared memory through the whole offset loop, so the image crosses HBM
-once each way instead of once per offset.
+On the H100 the search is bound by its ~25 float ops a pixel and offset
+(~1.2k a pixel at sr=3, pr=1, C=3), not by its 8C bytes a pixel; what a
+simple kernel pays instead is shared-memory traffic.  At the shapes the
+port runs (C = 3 or 1, sr=3, pr=1) the kernel keeps a 32 x 32 tile and its
+sr + pr reach in shared memory, so the image crosses HBM once each way, and
+each thread keeps the sums, the centre values and the shifted values of its
+four pixels in registers through the whole offset loop; only the box sum's
+column sums cross shared memory, one barrier an offset.  Any other C or
+radii run a general kernel with its sums in shared memory.  The weight's
+expf stays IEEE, which is most of what still separates it from the bound.
 """
 
 from __future__ import annotations

@@ -6,12 +6,18 @@ channel planes, `levels` a-trous B3 levels, each a dilated 5-tap blur of the
 rows then of the columns with edge padding, the detail soft-thresholded at
 thr * 0.5**lvl and added to a residual; out = current + residual.
 
-On the H100 the cascade is bound by its ~26 float ops a level and pixel,
-not by its 8 bytes a pixel (one read, one write).  The kernel runs the
-first four levels of a tile in shared memory with a halo of their 30-px
-reach, re-clamping every tap to the image; deeper levels reach too far for
-a tile and run as two passes through HBM each, so any depth runs on the
-card.
+On the H100 the cascade is bound by its ~25 float ops a level and pixel,
+not by its 8 bytes a pixel (one read, one write); what is scarce is the
+halo a tile must carry and recompute, which doubles with every level it
+fuses.  The launcher runs the levels in groups: the first three in one
+64 x 64 tile in shared memory (a 14-px halo; the residual in registers;
+blocks off the image's rim read their taps without clamping); each later
+level in one launch that takes its rows pass straight from the current
+plane into shared memory and runs the columns pass there (no halo above or
+below, 16 bytes a pixel through HBM); steps past 64 as a rows pass and a
+columns pass through HBM.  `current` and the residual are handed on in
+scratch planes, so any depth runs on the card.  The grouping moves no sum:
+the kernel equals the plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -23,7 +29,6 @@ import torch
 from . import launches
 
 _B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
-FUSED_LEVELS = 4  # levels the kernel runs in shared memory (csrc/wavelet.cu)
 MAX_LEVELS = 30   # a step of 2**levels must fit an int
 
 
@@ -50,13 +55,16 @@ def wavelet_core(planes: torch.Tensor, thresholds: torch.Tensor, *, levels: int 
         raise RuntimeError(f'wavelet_core: unsupported device {planes.device}')
     from ._build import check, load
 
-    fn = load('wavelet_core').wavelet_launch
+    lib = load('wavelet_core')
+    fn = lib.wavelet_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     c, h, w = planes.shape
     thr = thresholds.contiguous()
     out = torch.empty_like(planes)
-    deep = levels > FUSED_LEVELS
+    # levels past the launcher's shared-memory tile hand `current` on through
+    # two scratch planes
+    deep = levels > lib.wavelet_fused_levels()
     cur = torch.empty_like(planes) if deep else None
     tmp = torch.empty_like(planes) if deep else None
     with torch.cuda.device(planes.device):
