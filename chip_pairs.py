@@ -1,0 +1,268 @@
+"""Paired timings of two kernels against their earlier sources, on one GPU.
+
+    python3 chip_pairs.py --parent DIR [--out FILE.json]
+
+DIR holds the earlier sources, which are no longer in the tree:
+
+    git show REV:tpu_darktable_torch/csrc/bilateral_band.cu > DIR/bilateral_band.cu
+    git show REV:tpu_darktable_torch/csrc/wiener_core.cu > DIR/wiener_core.cu
+
+(REV: the last commit that has the five-launch bilateral chain and the
+paired-DFT Wiener tile core, a3c1ad5).  They are built with the port's nvcc flags and
+run in turns with the sources of the tree (earlier, new, new, earlier; three
+rounds of 20 launches, CUDA events), so that the card's clock and power
+state are shared by both:
+
+  - wiener_tile_core on (16, 3072, 4160) slabs at K = 32 (the coset slabs
+    of a 4096x3000 plane at overlap 4) and on (12, 1536, 2080) at K = 16;
+    the new kernel's error against its plain version, its difference to
+    the earlier kernel, and the same turns for a few variants of the new
+    source (warps a block and blocks an SM, streaming loads and stores,
+    approximate division), each built from the tree's source with a
+    substitution;
+  - the bilateral detail term at 4096x3000 for sigma_s 1, 2, 8 and for
+    gz = 51: the five-launch source against the one-launch source that now
+    serves both wrappers, and max |diff| between them.
+
+Prints the card's name and power limit first, a JSON object last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROUNDS, ITERS = 3, 20
+
+# name -> substitutions on csrc/wiener_core.cu
+_W4, _B5 = 'constexpr int WARPS = 4;', 'constexpr int BLOCKS_PER_SM = 5;'
+WIENER_VARIANTS = {   # NxM: N warps a block, M blocks an SM
+    'warps8x2': [(_W4, 'constexpr int WARPS = 8;'), (_B5, 'constexpr int BLOCKS_PER_SM = 2;')],
+    'warps4x4': [(_B5, 'constexpr int BLOCKS_PER_SM = 4;')],
+    'warps16x1': [(_W4, 'constexpr int WARPS = 16;'), (_B5, 'constexpr int BLOCKS_PER_SM = 1;')],
+    'warps8x3': [(_W4, 'constexpr int WARPS = 8;'), (_B5, 'constexpr int BLOCKS_PER_SM = 3;')],
+    'warps4x6': [(_B5, 'constexpr int BLOCKS_PER_SM = 6;')],
+    'warps2x10': [(_W4, 'constexpr int WARPS = 2;'), (_B5, 'constexpr int BLOCKS_PER_SM = 10;')],
+    'streaming': [
+        ('re[i] = ta.valid ? slabs[ta.base + i * row_len + j] : 0.0f;',
+         're[i] = ta.valid ? __ldcs(slabs + ta.base + i * row_len + j) : 0.0f;'),
+        ('im[i] = tb.valid ? slabs[tb.base + i * row_len + j] : 0.0f;',
+         'im[i] = tb.valid ? __ldcs(slabs + tb.base + i * row_len + j) : 0.0f;'),
+        ('if (ta.valid) out[ta.base + i * row_len + j] = (re[i] * inv_kk) * w2i + ma * (w2f * w2i);',
+         'if (ta.valid) __stcs(out + ta.base + i * row_len + j, (re[i] * inv_kk) * w2i + ma * (w2f * w2i));'),
+        ('if (tb.valid) out[tb.base + i * row_len + j] = (im[i] * inv_kk) * w2i + mb * (w2f * w2i);',
+         'if (tb.valid) __stcs(out + tb.base + i * row_len + j, (im[i] * inv_kk) * w2i + mb * (w2f * w2i));')],
+    'fdividef': [('fmaxf(pa - s2a, 0.0f) / pa', '__fdividef(fmaxf(pa - s2a, 0.0f), pa)'),
+                 ('fmaxf(pb - s2b, 0.0f) / pb', '__fdividef(fmaxf(pb - s2b, 0.0f), pb)')],
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvcc_build(jobs):
+    """jobs: {name: source path}.  One nvcc each, in parallel; returns
+    {name: CDLL} and logs the ptxas lines."""
+    from tpu_darktable_torch.kernels import _build
+
+    out_dir = _build.build_dir() / 'pairs'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in jobs.items():
+        lib = out_dir / f'lib{name}.so'
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'{name}: nvcc failed\n{text}')
+        for ln in text.splitlines():
+            if 'registers' in ln or 'spill' in ln:
+                log(f'  {name}: {ln.strip()}')
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def event_ms(fn, iters=ITERS):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def turns(old, new):
+    """old, new, new, old, ROUNDS times.  Returns the two lists of ms and
+    whether new won every pair (each old against the new next to it)."""
+    for fn in (old, new):
+        for _ in range(3):
+            fn()
+    t_old, t_new = [], []
+    for _ in range(ROUNDS):
+        a, b, c, d = event_ms(old), event_ms(new), event_ms(new), event_ms(old)
+        t_old += [a, d]
+        t_new += [b, c]
+    return t_old, t_new, all(n < o for o, n in zip(t_old, t_new))
+
+
+def summary(ts):
+    return dict(median=statistics.median(ts), min=min(ts), max=max(ts))
+
+
+def old_tables(k, wf, wi, dev):
+    """The earlier Wiener launcher's (4, K) table: cos, sin, wf, wi."""
+    ang = 2.0 * np.pi * np.arange(k, dtype=np.float64) / k
+    cs, sn = np.cos(ang), np.sin(ang)
+    cs[np.abs(cs) < 1e-12] = 0.0
+    sn[np.abs(sn) < 1e-12] = 0.0
+    return torch.as_tensor(np.stack([cs.astype(np.float32), sn.astype(np.float32), wf, wi]),
+                           device=dev)
+
+
+def wiener_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core_plain
+    from tpu_darktable_torch.ops.wiener import _gaussian_window
+
+    argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for k, shape, n_sig in ((32, (16, 3072, 4160), 1), (16, (12, 1536, 2080), 3)):
+        # log-luminance-like values: smooth in [-3, 0] plus noise
+        x = (torch.rand(shape, generator=gen, device=dev) * 0.2
+             - 3.0 * torch.rand((shape[0], 1, 1), generator=gen, device=dev))
+        sig2 = torch.full((n_sig,), 0.075 ** 2, device=dev)
+        wf = _gaussian_window(k, 0.3)
+        windows = torch.as_tensor(np.stack([wf, wf]), device=dev)
+        tables = old_tables(k, wf, wf, dev)
+        outs = {name: torch.empty_like(x) for name in libs}
+
+        def call(name):
+            fn = libs[name].wiener_core_launch
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            tab = tables if name == 'parent' else windows
+
+            def run():
+                status = fn(x.data_ptr(), outs[name].data_ptr(), sig2.data_ptr(), tab.data_ptr(),
+                            k, shape[0], shape[1] // k, shape[2] // k, n_sig, stream)
+                if status != 0:
+                    raise RuntimeError(f'{name}: cudaError_t {status}')
+            return run
+
+        runs = {name: call(name) for name in libs}
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        plain = wiener_tile_core_plain(x, sig2, wf, wf, k=k)
+        scale = max(1.0, x.abs().max().item())
+        row = {'shape': list(shape), 'tolerance': 2e-6 * scale}
+        for name in libs:
+            row[f'{name}_err_vs_plain'] = (outs[name] - plain).abs().max().item()
+        row['new_vs_parent'] = (outs['new'] - outs['parent']).abs().max().item()
+        del plain
+        for name in libs:
+            if name == 'parent':
+                continue
+            t_old, t_new, won = turns(runs['parent'], runs[name])
+            row[name] = dict(parent=summary(t_old), new=summary(t_new), won_every_pair=won)
+            log(f'wiener_tile_core K={k} {name}: parent {summary(t_old)} new {summary(t_new)} '
+                f'won every pair: {won}')
+        log(f'wiener_tile_core K={k}: ' + json.dumps({a: b for a, b in row.items()
+                                                      if not isinstance(b, dict)}))
+        result[f'wiener_k{k}'] = row
+        if not row['new_err_vs_plain'] <= row['tolerance']:
+            raise AssertionError(f'new kernel off its plain version: {row}')
+
+
+def bilateral_pairs(libs, dev, result):
+    from tpu_darktable_torch.ops.bilateral import compute_grid_size
+
+    h, w = 3000, 4096
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lum = torch.rand((h, w), generator=gen, device=dev) * 0.95
+    stream = torch.cuda.current_stream().cuda_stream
+    band = libs['band'].bilateral_band_launch
+    band.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fused = libs['fused'].bilateral_fused_launch
+    fused.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    cases = [(s, compute_grid_size(w, h, float(s), 0.2)[2], 0.2) for s in (1, 2, 8)]
+    cases.append((2, 51, 0.02))
+    for s, gz, sr in cases:
+        ga = torch.empty((gz, h // s + 1, w // s + 1), device=dev)
+        gb = torch.empty_like(ga)
+        o_band, o_fused = torch.empty_like(lum), torch.empty_like(lum)
+
+        def run_band():
+            if band(lum.data_ptr(), o_band.data_ptr(), ga.data_ptr(), gb.data_ptr(), h, w, s, gz,
+                    sr, stream) != 0:
+                raise RuntimeError('bilateral_band launch failed')
+
+        def run_fused():
+            if fused(lum.data_ptr(), o_fused.data_ptr(), h, w, s, gz, sr, 0, stream) != 0:
+                raise RuntimeError('bilateral_fused launch failed')
+
+        t_old, t_new, won = turns(run_band, run_fused)
+        diff = (o_band - o_fused).abs().max().item()
+        key = f'bilateral_s{s}_gz{gz}'
+        result[key] = dict(five_launch=summary(t_old), one_launch=summary(t_new),
+                           won_every_pair=won, max_abs_diff=diff)
+        log(f'{key}: five-launch {summary(t_old)} one-launch {summary(t_new)} '
+            f'won every pair: {won}; max |diff| {diff:g}')
+        del ga, gb
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--parent', required=True, help='directory with the earlier sources')
+    ap.add_argument('--out', default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print('chip_pairs: needs one GPU', file=sys.stderr)
+        return 2
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(smi)
+    from tpu_darktable_torch.kernels import _build
+
+    parent = Path(args.parent)
+    src = (_build.CSRC / 'wiener_core.cu').read_text()
+    var_dir = _build.build_dir() / 'pairs'
+    var_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {'parent': parent / 'wiener_core.cu', 'new': _build.CSRC / 'wiener_core.cu',
+            'band': parent / 'bilateral_band.cu', 'fused': _build.CSRC / 'bilateral_fused.cu'}
+    for name, subs in WIENER_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f'variant {name}: {old!r} is not in the source')
+            text = text.replace(old, new)
+        (var_dir / f'{name}.cu').write_text(text)
+        jobs[name] = var_dir / f'{name}.cu'
+    libs = nvcc_build(jobs)
+    dev = torch.device('cuda')
+    result = {'card': smi, 'rounds': ROUNDS, 'launches_a_timing': ITERS}
+    wiener_pairs({k: v for k, v in libs.items() if k not in ('band', 'fused')}, dev, result)
+    bilateral_pairs(libs, dev, result)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -15,6 +15,9 @@ Phases (any failure raises and the script exits non-zero):
      Wiener core), NLM also on one plane (C = 1), the wavelet also at 5 and
      7 levels and timed at every depth from 0 to 8, and the bound (the least time the card could take: bytes
      over 3.35 TB/s or operations over 33.5 T/s, whichever is larger).
+     bilateral_band and bilateral_fused are two wrappers of one source
+     (csrc/bilateral_fused.cu); the Wiener core's error is printed for both
+     of its shapes.
   3. the RCD golden cases of tests/goldens/pipeline_goldens.npz on the card
      (1 uint8 count).
   4. one FULL frame at 1024x768 on the card against the same on the CPU
@@ -22,30 +25,36 @@ Phases (any failure raises and the script exits non-zero):
   5. the graded FULL configuration at full width through ImageProcessor:
      4096x3000 RGGB Packed12 with white balance, 3 batches of 4 synthetic
      frames; the launch counts are zeroed just before and read just after:
-     the path runs each of its three kernels once a frame (RCD interior,
-     the 3-pass colour smoothing and the bilateral detail term each in one
-     wrapper call), so each must show exactly BATCH * N_BATCHES = 12, and
-     the other kernels 0.  Prints ms per frame, frames per second,
-     per-stage ms and peak device memory.
+     the path runs each of its four kernels once a frame (RCD interior,
+     the 3-pass colour smoothing, the Wiener tile core and the bilateral
+     detail term each in one wrapper call), so each must show exactly
+     BATCH * N_BATCHES = 12, and the other kernels 0.  Prints ms per frame,
+     frames per second, per-stage ms (the Wiener stage split into LAB in and
+     out, slab build, kernel, overlap-add) and peak device memory.
   6. BASELINE config 3: wavelet then NLM denoise of 8 frames of 4096x3000
      RGB from the FULL front end, a warm-up pass then a timed pass with
      exactly 8 launches of each kernel; finite output with a lower std than
      its input.  Prints ms per frame, frames per second and peak memory.
   7. FULL with bil_sigma_spatial = 3, the general bilateral path, through
-     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches
-     and no bilateral_band; card vs CPU at 1024x768 (1 count); one
+     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz and 8
+     wiener_tile_core launches and no bilateral_band; card vs CPU at
+     1024x768 (1 count); one
      bilateral_denoise of a 12 MP plane (2 grid_blur_xyz launches).
-  8. the opt-in kernel routes at full width:
-     wiener_denoise(use_separable=False) against the separable route on the
-     12 MP log-L plane (C=1) and on a 3-channel frame (bar 1e-3), and
-     bilateral_process(_use_fused_kernel=True) against the default fast
-     path (bar 1e-6), with the ms of each; then FULL for one batch of 4 with
-     its Wiener and bilateral stages swapped to the two kernels (a local
-     copy of the back-end loop), printing the uint8 count difference
-     against plain FULL; 4 launches of wiener_tile_core and bilateral_fused.
+  8. the Wiener route check at full width: wiener_denoise on the tile-core
+     route (the pipeline's) against the separable einsums in float32 (bar
+     1e-3) and with float16 storage (printed, no bar) on the 12 MP log-L
+     plane (C=1) and on a 3-channel frame, and their times in turns
+     (separable float16, tile core, tile core, separable float16; three
+     rounds); then FULL for one batch of 4 with the Wiener stage on the
+     separable float16-storage route (a local copy of the back-end loop,
+     its bilateral detail term taken through kernels.bilateral_fused: the
+     same source as the pipeline's bilateral_band, so the same bits)
+     against process_batch: max count, share of values that differ, share
+     by more than 1 (must be 0); 4 launches of bilateral_fused.
   9. the piecewise entry point at 4096x3000: load_bytes -> debayer ->
      process_rgb -> tonemap with bounds and metrics from a fused run of the
-     same frame, equal to the fused output within 1 count; then the PPG and
+     same frame, equal to the fused output within 1 count, one launch of
+     each of FULL's four kernels; then the PPG and
      bilinear debayers and the linear and filmic tonemaps through the
      piecewise chain, card vs CPU at 1024x768 (1 count).
 Then one JSON line with the kernels, and the result JSON as the last line.
@@ -72,7 +81,7 @@ FP32_OPS_PER_S = 67e12 / 2
 W, H = 4096, 3000
 BATCH, N_BATCHES = 4, 3
 # FULL runs each of these once a frame and none of the other kernels.
-FULL_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'bilateral_band')
+FULL_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'wiener_tile_core', 'bilateral_band')
 WB = (1.2, 1.0, 1.1)
 REPO = Path(__file__).resolve().parent
 
@@ -180,13 +189,15 @@ def phase_kernels(dev):
                also=(), library=None):
         """`also`: further (kernel, plain) pairs held to the same tolerance;
         `library`: one PyTorch call computing the same function, timed only."""
-        err = 0.0
+        errs = []
         for kf, pf in ((k_fn, p_fn), *also):
             k_out, p_out = kf(), pf()
             torch.cuda.synchronize()
-            err = max(err, err_fn(k_out, p_out))
+            errs.append(err_fn(k_out, p_out))
             del k_out, p_out
-        log(f'{name}: max_abs_err {err:.3g} (tolerance {tol:g})')
+        err = max(errs)
+        log(f'{name}: max_abs_err {err:.3g} (tolerance {tol:g}; by shape: '
+            + ', '.join(f'{e:.3g}' for e in errs) + ')')
         if not err <= tol:
             raise AssertionError(f'{name} disagrees with its plain version: {err} > {tol}')
         ms, plain_ms = cuda_ms(k_fn), cuda_ms(p_fn, iters=5)
@@ -217,14 +228,18 @@ def phase_kernels(dev):
            12 * px + 8 * px, 3 * 2 * 54 * px)
     # the algorithm: ~27 ops a pixel to splat, 3 x 5 taps x 2 ops a grid
     # cell (1.5 cells a pixel at s=2, gz=6), ~22 to slice; lum read once,
-    # l_diff written once.
-    record('bilateral_band', 'tpu_darktable_torch/csrc/bilateral_band.cu',
+    # l_diff written once.  One source serves this wrapper and
+    # bilateral_fused below; the plain version on the card differs by ~1e-7
+    # because PyTorch's CUDA division by a scalar multiplies by the reciprocal.
+    log('bilateral_band and bilateral_fused: two wrappers, one source '
+        '(tpu_darktable_torch/csrc/bilateral_fused.cu)')
+    record('bilateral_band', 'tpu_darktable_torch/csrc/bilateral_fused.cu',
            'tpu_darktable/kernels/bilateral_band.py:169',
            lambda: bilateral_band(lum, s=2, gz=gz, sigma_r=0.2),
            lambda: bilateral_band_plain(lum, s=2, gz=gz, sigma_r=0.2),
            lambda a, b: (a - b).abs().max().item(), 1e-5,
            4 * px + 4 * px, (27 + 45 + 22) * px)
-    # The same function in one launch: the same bytes and operations.
+    # The same function with either z blur: the same bytes and operations.
     _, _, gz8 = compute_grid_size(W, H, 8.0, 0.2)
     fused_pair = lambda s_, gz_, zm: (
         lambda: bilateral_fused(lum, s=s_, gz=gz_, sigma_r=0.2, z_mode=zm),
@@ -299,6 +314,19 @@ def phase_kernels(dev):
     return out
 
 
+def radix2_fft_ops(n):
+    """Float operations of one n-point complex FFT as csrc/wiener_core.cu
+    runs it: 4 a butterfly, and a twiddle costs 0 (1, -i), 4 ((+-1 - i) /
+    sqrt 2) or 6."""
+    ops, half = 0, n // 2
+    while half >= 1:
+        for j in range(half):
+            turn32 = j * (n // (2 * half)) * (32 // n)
+            ops += (n // (2 * half)) * (4 + (0 if turn32 in (0, 8) else 4 if turn32 in (4, 12) else 6))
+        half //= 2
+    return ops
+
+
 def record_wiener_core(dev, record, rgb_n):
     """wiener_tile_core on the coset slabs FULL's log-L plane gives it (K=32,
     overlap 4, C=1: (16, 3072, 4160)), and on K=16, overlap 2, C=3 slabs of
@@ -337,20 +365,24 @@ def record_wiener_core(dev, record, rgb_n):
         torch.matmul(tiles, ana_t)
         torch.matmul(spec, syn)
 
-    # Tolerance: the kernel windows (t - m) and transforms rows then columns;
-    # the plain version transforms t with dense bases and subtracts m * a0
-    # afterwards, so the two differ by float32 rounding of sums whose terms
-    # reach max|t| * sum(wf2): 2e-6 * max(1, max|t|).
+    # Tolerance: the kernel windows (t - m) and runs an FFT; the plain
+    # version transforms t with dense bases and subtracts m * a0 afterwards,
+    # so the two differ by float32 rounding of sums whose terms reach
+    # max|t| * sum(wf2): 2e-6 * max(1, max|t|).
     tol = 2e-6 * max(1.0, slabs.abs().max().item())
     # Operations the function needs, whatever the kernel does: a real 2-D
     # transform of N = K^2 points forward and inverse by FFT, 2.5 N log2 N
     # each way, plus ~24 K^2 for the mean, both windows and the gain: 75,776
     # a tile at K=32, under the 8 bytes a pixel, so the function is bound by
-    # bytes.  (The kernel's O(K^3) paired DFT runs 12 K^2 (K/2 + 1) + 24 K^2
-    # = 233,472 a tile; logged below, not part of the bound.)
+    # bytes.  (As run: two tiles ride one complex transform, four passes of
+    # K radix-2 FFTs with the trivial twiddles written out, the split and
+    # gain with K + 2 divisions a lane, windows and mean ~12 a pixel; logged
+    # below, not part of the bound.)
     need_ops = 5 * k * k * int(np.log2(k * k)) + 24 * k * k
-    run_ops = 12 * k * k * (k // 2 + 1) + 24 * k * k
-    log(f'wiener_tile_core operations a tile: {need_ops} needed (FFT count), {run_ops} as run; '
+    split_ops = 4 + 6 + 14 * (k + 2) / (2 * k)   # a complex value: split, apply, its share of gains
+    run_ops = round((4 * k * radix2_fft_ops(k) + k * k * split_ops) / 2 + 12 * k * k)
+    log(f'wiener_tile_core operations a tile: {need_ops} needed (5 N log2 N count), {run_ops} as '
+        f'run ({radix2_fft_ops(k)} a {k}-point complex FFT); '
         f'as run {n_tiles * run_ops / FP32_OPS_PER_S * 1e3:.4f} ms at the peak rate')
     record('wiener_tile_core', 'tpu_darktable_torch/csrc/wiener_core.cu',
            'tpu_darktable/kernels/wiener_core.py:70',
@@ -474,6 +506,7 @@ def phase_full(dev):
 def stage_ms(dev, frame_bytes):
     """Per-stage ms of one FULL frame, each stage timed alone by CUDA events."""
     from tpu_darktable_torch.ops import bilateral, color, packed, postprocess, rcd, tonemap
+    from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core
     from tpu_darktable_torch.ops import white_balance, wiener
     from tpu_darktable_torch.ops.bayer import BayerPattern
     from tpu_darktable_torch.pipeline.util import normalize_image
@@ -492,14 +525,32 @@ def stage_ms(dev, frame_bytes):
     bounds = tonemap.compute_image_bounds(rgb)
     norm = normalize_image(rgb, bounds)
 
-    def denoise():
+    def lab_in():
         lab, lum = color.rgb_to_lab_with_clipped_l(norm)
-        den = wiener.wiener_denoise(torch.log(torch.clamp(lum, min=1e-4))[..., None], s.denoise,
-                                    32, s.denoise_overlap, spectral_dtype=torch.float16,
-                                    storage_dtype=torch.float16)[..., 0]
-        return color.lab_modify_luminance(lab, torch.exp(den + 1e-4))
+        return lab, torch.log(torch.clamp(lum, min=1e-4))
 
-    dn = denoise()
+    lab, log_l = lab_in()
+    wiener_route = lambda: wiener.wiener_denoise(log_l[..., None], s.denoise, 32, s.denoise_overlap,
+                                                 use_separable=False)[..., 0]
+    den = wiener_route()
+    lab_out = lambda: color.lab_modify_luminance(lab, torch.exp(den + 1e-4))
+    dn = lab_out()
+    # the route's own steps, as ops/wiener.py:wiener_denoise runs them
+    k, ov = 32, s.denoise_overlap
+    pad = lambda: wiener._reflect_pad(log_l[..., None], k, ov)
+    xr, n_ty, n_tx = pad()
+    build = lambda: wiener._coset_slabs(xr, k, ov, n_ty, n_tx)
+    slabs = build()
+    sig2 = torch.full((1,), s.denoise ** 2, device=dev)
+    wf, wi = wiener._gaussian_window(k, 0.3), wiener._gaussian_window(k, 0.3)
+    core = lambda: wiener_tile_core(slabs, sig2, wf, wi, k=k)
+    recon = core()
+    add = lambda: wiener._overlap_add(recon, H, W, 1, k, ov)
+    acc = add()
+    step = k // ov
+    mrow, mcol = (wiener._weight_sum_1d(n + 2 * k, (n + k + step - 1) // step + ov, k, step, 0.3,
+                                        0.3, dev) for n in (H, W))
+    divide = lambda: wiener._divide_by_weight(acc, mrow, mcol, k)
 
     def bil():
         lab = color.rgb_to_lab(dn)
@@ -513,12 +564,20 @@ def stage_ms(dev, frame_bytes):
     tone = lambda: tonemap.aces_tonemap(bl, params, metrics)
     parts = [('decode+wb', decode), ('rcd', demosaic), ('rcd edge strips (plain, in rcd)', strips),
              ('postprocess', post),
-             ('wiener (lab in/out)', denoise), ('bilateral (lab in/out)', bil),
+             ('wiener: lab in + log', lab_in), ('wiener: tile-core route', wiener_route),
+             ('wiener: exp + lab out', lab_out), ('bilateral (lab in/out)', bil),
              ('adaptive aces + vibrance', tone)]
     res = {name: cuda_ms(fn, iters=3, warmup=1) for name, fn in parts}
     log('FULL per-stage ms (one frame): '
         + ', '.join(f'{k} {v:.3f}' for k, v in res.items())
         + f'; sum without the strips {sum(res.values()) - res[parts[2][0]]:.3f}')
+    route = {name: cuda_ms(fn, iters=5, warmup=1) for name, fn in (
+        ('reflect pad', pad), ('slab build', build), ('kernel', core), ('overlap-add', add),
+        ('weight division', divide))}
+    rest = res['wiener: tile-core route'] - sum(route.values())
+    log('wiener tile-core route ms (inside the stage above): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in route.items())
+        + f'; the rest (checks, host code between the launches) {rest:.3f}')
 
 
 # ---------------------------------------------------------------- phase 6
@@ -613,10 +672,10 @@ def phase_general_bilateral(dev):
     launches = dict(kernels.launches)
     log(f'general bilateral launches: {launches}')
     n = BATCH * n_batches
-    if launches['grid_blur_xyz'] != n or launches['bilateral_band'] != 0:
-        raise AssertionError(f'general bilateral launched grid_blur_xyz {launches["grid_blur_xyz"]} '
-                             f'(expected {n}) and bilateral_band {launches["bilateral_band"]} '
-                             '(expected 0) times')
+    want = dict.fromkeys(launches, 0)
+    want.update(rcd_interior=n, color_smooth_diffs=n, wiener_tile_core=n, grid_blur_xyz=n)
+    if launches != want:
+        raise AssertionError(f'general bilateral launched {launches}, expected {want}')
     if tuple(out.shape) != (BATCH, H, W, 3) or out.float().std().item() < 1.0:
         raise AssertionError(f'general bilateral output {tuple(out.shape)} is wrong or flat')
     log(f'FULL with sigma_s 3 (general bilateral) {W}x{H} batch {BATCH}: batch seconds '
@@ -639,17 +698,21 @@ def phase_general_bilateral(dev):
                                        iters=3, warmup=1)
              for s in (3.0, 2.0)}
     log(f'bilateral_process alone on a {W}x{H} plane, ms: {stage} '
-        '(3: general path with grid_blur_xyz; 2: fast path, bilateral_band)')
+        '(3: general path with grid_blur_xyz; 2: fast path, bilateral_band in one launch)')
     return launches
 
 
 # ---------------------------------------------------------------- phase 8
 
-def phase_opt_in_routes(dev):
-    """The two opt-in kernel routes at full width against the default ones,
-    then FULL for one batch with both stages on the kernel routes."""
+def phase_wiener_route(dev):
+    """The pipeline's Wiener route (the tile core) against the separable
+    einsums at full width, then FULL for one batch against FULL with the
+    Wiener stage on the separable float16-storage route."""
+    import statistics
+
     import tpu_darktable_torch as tt
     from tpu_darktable_torch import kernels
+    from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused
     from tpu_darktable_torch.ops import bilateral, color, tonemap, wiener
     from tpu_darktable_torch.pipeline.util import normalize_image
 
@@ -659,46 +722,49 @@ def phase_opt_in_routes(dev):
     f16 = dict(spectral_dtype=torch.float16, storage_dtype=torch.float16)
     for label, x, sig in (('log-L plane (C=1)', log_l, s.denoise),
                           ('RGB frame (C=3)', rgb, [0.05, 0.03, 0.04])):
-        tile = wiener.wiener_denoise(x, sig, 32, s.denoise_overlap, use_separable=False)
-        d32 = (tile - wiener.wiener_denoise(x, sig, 32, s.denoise_overlap)).abs().max().item()
-        d16 = (tile - wiener.wiener_denoise(x, sig, 32, s.denoise_overlap, **f16)
-               ).abs().max().item()
+        tile_fn = lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap, use_separable=False)
+        f16_fn = lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap, **f16)
+        f32_fn = lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap)
+        tile = tile_fn()
+        d32 = (tile - f32_fn()).abs().max().item()
+        d16 = (tile - f16_fn()).abs().max().item()
         del tile
-        ms = {name: cuda_ms(fn, iters=3, warmup=1) for name, fn in (
-            ('tile core', lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap,
-                                                        use_separable=False)),
-            ('separable f16 storage', lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap,
-                                                                    **f16)),
-            ('separable f32', lambda: wiener.wiener_denoise(x, sig, 32, s.denoise_overlap)))}
         log(f'wiener_denoise {W}x{H} {label}, tile-core route vs separable: max |diff| '
-            f'{d32:.3g} (float32, bar 1e-3), {d16:.3g} (float16 storage, as FULL runs it: the '
-            f'storage rounding itself, no bar); ms '
-            + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()))
+            f'{d32:.3g} (float32, bar 1e-3), {d16:.3g} (float16 storage: the storage rounding '
+            f'itself, no bar)')
         if not d32 <= 1e-3:
             raise AssertionError(f'wiener tile-core route differs from the separable route by '
                                  f'{d32} on the {label}')
-    lum = color.compute_luminance(rgb)
-    args = (lum, s.bil_sigma_spatial, s.bil_sigma_luminance, s.bilateral)
-    d = (bilateral.bilateral_process(*args, _use_fused_kernel=True)
-         - bilateral.bilateral_process(*args)).abs().max().item()
-    ms = {name: cuda_ms(fn, iters=10, warmup=2) for name, fn in (
-        ('fused', lambda: bilateral.bilateral_process(*args, _use_fused_kernel=True)),
-        ('band (default)', lambda: bilateral.bilateral_process(*args)))}
-    log(f'bilateral_process {W}x{H} sigma_s 2, fused route vs default: max |diff| {d:.3g} '
-        f'(bar 1e-6); ms ' + ', '.join(f'{k} {v:.3f}' for k, v in ms.items()))
-    if not d <= 1e-6:
-        raise AssertionError(f'bilateral fused route differs from the default by {d}')
-    del rgb, log_l, lum
+        # in turns: separable f16, tile core, tile core, separable f16
+        t_sep, t_tile = [], []
+        for _ in range(3):
+            a, b = cuda_ms(f16_fn, iters=3, warmup=1), cuda_ms(tile_fn, iters=3, warmup=1)
+            c, d = cuda_ms(tile_fn, iters=3, warmup=1), cuda_ms(f16_fn, iters=3, warmup=1)
+            t_sep += [a, d]
+            t_tile += [b, c]
+        won = all(t < o for o, t in zip(t_sep, t_tile))
+        log(f'wiener_denoise {W}x{H} {label} ms in turns: tile core median '
+            f'{statistics.median(t_tile):.3f} ({min(t_tile):.3f}-{max(t_tile):.3f}), separable '
+            f'float16 storage median {statistics.median(t_sep):.3f} ({min(t_sep):.3f}-'
+            f'{max(t_sep):.3f}), separable float32 {cuda_ms(f32_fn, iters=3, warmup=1):.3f}; '
+            f'tile core won every pair: {won}')
+        if not won:
+            raise AssertionError(f'the tile-core route lost a pair on the {label}')
+    del rgb, log_l
 
-    # FULL, one batch of 4, with the Wiener and bilateral stages on the two
-    # kernels: the back end of pipeline/image_processor.py copied here with
-    # the two routes switched (no setting selects them in the pipeline).
+    # FULL, one batch of 4, as it ran before the tile core took the Wiener
+    # stage: the back end of pipeline/image_processor.py copied here with the
+    # separable float16-storage route.  The bilateral detail term goes through
+    # kernels.bilateral_fused: one source with the pipeline's bilateral_band,
+    # so the two outputs differ by the Wiener route alone.
     batch = synthetic_frames(W, H, BATCH, seed=100).to(dev)
     proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
                              device=dev, white_balance=WB)
     ref = proc.process_batch(batch)
     rgb = front_end_raw(dev, batch)
     bounds = tonemap.compute_image_bounds(rgb[:, ::8, ::8], stride=1)
+    _, _, gz = bilateral.compute_grid_size(W, H, s.bil_sigma_spatial, s.bil_sigma_luminance)
+    norm = -s.bilateral * s.bil_sigma_luminance * 4.0
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -707,13 +773,13 @@ def phase_opt_in_routes(dev):
         x = normalize_image(rgb[i], bounds)
         lab, l_clip = color.rgb_to_lab_with_clipped_l(x)
         den = wiener.wiener_denoise(torch.log(torch.clamp(l_clip, min=1e-4))[..., None], s.denoise,
-                                    32, s.denoise_overlap, use_separable=False)[..., 0]
+                                    32, s.denoise_overlap, **f16)[..., 0]
         x = color.lab_modify_luminance(lab, torch.exp(den + 1e-4))
         lab = color.rgb_to_lab(x)
-        out_l = bilateral.bilateral_process(lab[..., 0], s.bil_sigma_spatial,
-                                            s.bil_sigma_luminance, s.bilateral,
-                                            _use_fused_kernel=True)
-        rgb[i] = color.lab_modify_luminance(lab, out_l)
+        lum = lab[..., 0].contiguous()
+        l_diff = bilateral_fused(lum, s=int(s.bil_sigma_spatial), gz=gz,
+                                 sigma_r=s.bil_sigma_luminance)
+        rgb[i] = color.lab_modify_luminance(lab, torch.clamp(lum + norm * l_diff, min=0.0))
         samples.append(rgb[i, ::8, ::8])
     metrics = tonemap.compute_image_metrics(torch.stack(samples), stride=1)
     params = tonemap.TonemapParameters(s.tone_gamma, s.tone_intensity, s.light_adapt, s.vibrance)
@@ -721,21 +787,21 @@ def phase_opt_in_routes(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    log(f'kernel-route launches: {launches}')
-    for name in ('wiener_tile_core', 'bilateral_fused'):
-        if launches[name] != BATCH:
-            raise AssertionError(f'{name} launched {launches[name]} times on its route, '
-                                 f'expected {BATCH}')
-    if launches['bilateral_band'] != 0:
-        raise AssertionError('bilateral_band ran on the fused route')
+    log(f'separable-route launches: {launches}')
+    if launches['bilateral_fused'] != BATCH or launches['wiener_tile_core'] != 0 \
+            or launches['bilateral_band'] != 0:
+        raise AssertionError(f'the separable-route back end launched {launches}')
     if out.shape != ref.shape or out.dtype != torch.uint8:
-        raise AssertionError(f'kernel-route FULL output {tuple(out.shape)} {out.dtype}')
+        raise AssertionError(f'separable-route FULL output {tuple(out.shape)} {out.dtype}')
     diff = (out.to(torch.int16) - ref.to(torch.int16)).abs()
-    log(f'FULL {W}x{H} batch {BATCH} with wiener_tile_core and bilateral_fused in place of the '
-        f'separable einsums and bilateral_band: max |diff| to plain FULL {diff.max().item()} '
-        f'count(s), {(diff > 0).float().mean().item():.3e} of values differ, '
-        f'{(diff > 1).float().mean().item():.3e} by more than 1; back end + tonemap '
-        f'{seconds / BATCH * 1e3:.2f} ms/frame')
+    over_1 = (diff > 1).float().mean().item()
+    log(f'FULL {W}x{H} batch {BATCH} (wiener_tile_core) against the same with the separable '
+        f'float16-storage einsums: max |diff| {diff.max().item()} count(s), '
+        f'{(diff > 0).float().mean().item():.3e} of values differ, {over_1:.3e} by more than 1; '
+        f'separable-route back end + tonemap {seconds / BATCH * 1e3:.2f} ms/frame')
+    if over_1 != 0.0:
+        raise AssertionError(f'{over_1} of FULL\'s values move by more than 1 count between the '
+                             'Wiener routes')
     return launches
 
 
@@ -810,18 +876,27 @@ def main():
     import tpu_darktable_torch  # noqa: F401  (fails where the repo is absent)
 
     dev = torch.device('cuda')
-    smi = phase_card_and_build()
-    kern = phase_kernels(dev)
-    phase_goldens(dev)
-    phase_card_vs_cpu(dev, full_settings())
-    launches = phase_full(dev)
+    seconds = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        torch.cuda.synchronize()
+        seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        return result
+
+    smi = timed(phase_card_and_build)
+    kern = timed(phase_kernels, dev)
+    timed(phase_goldens, dev)
+    timed(phase_card_vs_cpu, dev, full_settings())
+    launches = timed(phase_full, dev)
     # each kernel's count from the run of its own path
-    launches.update({k: v for k, v in phase_denoise(dev).items()
+    launches.update({k: v for k, v in timed(phase_denoise, dev).items()
                      if k in ('wavelet_core', 'nlm_core')})
-    launches['grid_blur_xyz'] = phase_general_bilateral(dev)['grid_blur_xyz']
-    launches.update({k: v for k, v in phase_opt_in_routes(dev).items()
-                     if k in ('wiener_tile_core', 'bilateral_fused')})
-    phase_piecewise(dev)
+    launches['grid_blur_xyz'] = timed(phase_general_bilateral, dev)['grid_blur_xyz']
+    launches['bilateral_fused'] = timed(phase_wiener_route, dev)['bilateral_fused']
+    timed(phase_piecewise, dev)
+    log(f'seconds by phase: {seconds}')
     for k in kern:
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',

@@ -6,11 +6,11 @@ threads as fibres with a working __syncthreads(), blocks one after another),
 built with g++ -ffp-contract=off (like nvcc --fmad=false) and called
 through the same C entry points the wrappers use.  It checks the kernels'
 indexing, halos and arithmetic against their plain versions, bit for bit
-(the Wiener tile core, whose sums cannot run in its plain version's order,
-against a numpy loop in the kernel's own order, and against the plain
-version at a stated tolerance);
-it cannot see races, launch limits or anything the GPU compiler refuses,
-which only chip_smoke.py on the card can.
+(the Wiener tile core, an FFT whose sums cannot run in its plain version's
+order, against the function in float64 and against the plain version, each
+at a stated tolerance);
+it cannot see every race, launch limits or anything the GPU compiler
+refuses, which only chip_smoke.py on the card can.
 """
 
 import ctypes
@@ -30,7 +30,7 @@ from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core_plain
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core_plain
-from tpu_darktable_torch.kernels.wiener_core import _tables, wiener_tile_core_plain
+from tpu_darktable_torch.kernels.wiener_core import _windows, wiener_tile_core_plain
 from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
 from tpu_darktable_torch.ops.wiener import _gaussian_window
 
@@ -40,7 +40,9 @@ torch.set_num_threads(1)
 # reaches __syncthreads(), which yields to the scheduler; the scheduler resumes
 # the threads in index order, round after round, so a barrier holds and the
 # run is deterministic.  Dynamic shared memory starts as NaN in every block, so
-# a read of a value no thread wrote shows.  No warp shuffles.
+# a read of a value no thread wrote shows.  __syncwarp() yields like
+# __syncthreads(); __shfl_sync and __shfl_xor_sync pass a float through a
+# per-thread slot between two yields (full warps, width 32).
 EMU_HEADER = r"""#pragma once
 #include <cmath>
 #include <cstddef>
@@ -75,6 +77,21 @@ static std::vector<char> emu_stacks;
 static unsigned emu_cur = 0;
 static const std::function<void()>* emu_body = nullptr;
 inline void __syncthreads() { swapcontext(&emu_fibres[emu_cur].ctx, &emu_main); }
+// Every live fibre of the block runs once a round, so a yield is a barrier for
+// the threads that reach it together: a warp's, or the block's.
+inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
+static float emu_lane_val[1024];
+inline float __shfl_sync(unsigned, float v, int src_lane) {
+  const unsigned me = emu_cur;
+  emu_lane_val[me] = v;
+  __syncwarp();
+  const float got = emu_lane_val[(me & ~31u) + ((unsigned)src_lane & 31u)];
+  __syncwarp();
+  return got;
+}
+inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
+  return __shfl_sync(m, v, (int)((emu_cur & 31u) ^ (unsigned)lane_mask));
+}
 static void emu_entry() {
   (*emu_body)();
   emu_fibres[emu_cur].done = true;
@@ -170,20 +187,6 @@ def test_color_smooth_source_on_host(emu_lib, rng, n_passes):
     np.testing.assert_array_equal(out, ref.numpy())
 
 
-@pytest.mark.parametrize('h,w,s,gz,sr', [(60, 84, 2, 6, 0.2), (48, 64, 8, 6, 0.2),
-                                         (30, 42, 3, 11, 0.1), (20, 24, 1, 6, 0.2)])
-def test_bilateral_band_source_on_host(emu_lib, rng, h, w, s, gz, sr):
-    lum = (rng.random((h, w)) * 0.95).astype(np.float32)
-    out = np.zeros_like(lum)
-    ga = np.zeros((gz, h // s + 1, w // s + 1), np.float32)
-    gb = np.zeros_like(ga)
-    fn = emu_lib['bilateral_band'].bilateral_band_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    assert fn(_p(lum), _p(out), _p(ga), _p(gb), h, w, s, gz, sr, None) == 0
-    ref = bilateral_band_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr)
-    np.testing.assert_array_equal(out, ref.numpy())
-
-
 @pytest.mark.parametrize('shape,z_mode', [((6, 70, 45), 'derivative'), ((6, 70, 45), 'gaussian'),
                                           ((3, 33, 97), 'derivative'), ((9, 40, 64), 'gaussian')])
 def test_grid_blur_source_on_host(emu_lib, rng, shape, z_mode):
@@ -243,18 +246,26 @@ def test_nlm_source_on_host(emu_lib, rng, shape, sr, pr):
     assert np.abs(out - ref.numpy()).max() <= 1e-6
 
 
-@pytest.mark.parametrize('h,w,s,gz,sr,z_mode', [
-    (60, 84, 2, 6, 0.2, 'derivative'),    # staged; 1 x 2 ragged 64-px tiles
-    (60, 84, 2, 6, 0.2, 'gaussian'),
-    (144, 136, 8, 6, 0.2, 'derivative'),  # three tiles a side, s = 8
-    (30, 42, 3, 11, 0.1, 'derivative'),   # s does not divide the tile
-    (20, 24, 1, 6, 0.2, 'gaussian'),
-    (70, 66, 2, 51, 0.02, 'derivative'),  # gz 51: the launcher shrinks the tile
-    (120, 240, 120, 6, 0.2, 'derivative'),  # s too large to stage: reads lum directly
+@pytest.mark.parametrize('wrapper,h,w,s,gz,sr,z_mode', [
+    # as kernels/bilateral_band.py launches it: the derivative z taps
+    ('band', 60, 84, 2, 6, 0.2, 'derivative'),     # staged; 1 x 2 ragged 64-px tiles
+    ('band', 48, 64, 8, 6, 0.2, 'derivative'),
+    ('band', 30, 42, 3, 11, 0.1, 'derivative'),    # s does not divide the tile
+    ('band', 20, 24, 1, 6, 0.2, 'derivative'),
+    # as kernels/bilateral_fused.py launches it
+    ('fused', 60, 84, 2, 6, 0.2, 'gaussian'),
+    ('fused', 144, 136, 8, 6, 0.2, 'derivative'),  # three tiles a side, s = 8
+    ('fused', 20, 24, 1, 6, 0.2, 'gaussian'),
+    ('fused', 70, 66, 2, 51, 0.02, 'derivative'),  # gz 51: the launcher shrinks the tile
+    ('fused', 120, 240, 120, 6, 0.2, 'derivative'),  # s too large to stage: reads lum directly
+    ('fused', 40, 48, 2, 2, 1.0, 'derivative'),    # gz = 2: one slice cell pair, taps mostly cut
+    ('fused', 6, 10, 1, 6, 0.2, 'gaussian'),       # a frame smaller than one tile
+    ('fused', 100, 140, 4, 6, 0.2, 'derivative'),  # s = 4, 2 x 3 ragged tiles
 ])
-def test_bilateral_fused_source_on_host(emu_lib, rng, h, w, s, gz, sr, z_mode):
-    """The single-launch kernel against its plain version: bit-exact (the
-    kernel sums in the plain version's order)."""
+def test_bilateral_source_on_host(emu_lib, rng, wrapper, h, w, s, gz, sr, z_mode):
+    """The one-launch kernel behind both wrappers against the plain version
+    each is held to: bit-exact (the kernel sums in the plain version's
+    order)."""
     lum = (rng.random((h, w)) * 0.95).astype(np.float32)
     lum[:3, :5] = 0.0   # zero luminance next to the pad: the tent at z = 0 must not leak
     out = np.zeros_like(lum)
@@ -262,92 +273,53 @@ def test_bilateral_fused_source_on_host(emu_lib, rng, h, w, s, gz, sr, z_mode):
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     assert fn(_p(lum), _p(out), h, w, s, gz, sr, int(z_mode == 'gaussian'), None) == 0
-    ref = bilateral_fused_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr, z_mode=z_mode)
+    if wrapper == 'band':
+        ref = bilateral_band_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr)
+    else:
+        ref = bilateral_fused_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr, z_mode=z_mode)
     np.testing.assert_array_equal(out, ref.numpy())
 
 
-def _wiener_core_in_kernel_order(tiles, s2, tab):
-    """csrc/wiener_core.cu on (N, K, K) float32 tiles in numpy float32, every
-    sum in the kernel's order: over the even and the odd indices separately,
-    ascending, then combined for the output pair n, n + K/2."""
-    f = np.float32
-    n, k, _ = tiles.shape
-    un, msk, hk = k // 2 + 1, k - 1, k // 2
-    cs, sn, wf, wi = tab
-    rowsum = np.zeros((n, k), f)
-    for j in range(k):
-        rowsum = rowsum + tiles[:, :, j]
-    m = np.zeros(n, f)
-    for i in range(k):
-        m = m + rowsum[:, i]
-    inv_kk = f(1.0) / f(k * k)
-    m = m * inv_kk
-    w2f = wf[:, None] * wf[None, :]
-    x = (tiles - m[:, None, None]) * w2f
-
-    def even_odd(term, count):
-        """Sums of term(t) over even t and over odd t < count."""
-        e = o = f(0)
-        for t in range(0, count, 2):
-            e = e + term(t)
-            if t + 1 < count:
-                o = o + term(t + 1)
-        return e, o
-
-    # rows: v in [0, K/4] pairs with K/2 - v
-    v = np.arange(k // 4 + 1)
-    ec, oc = even_odd(lambda j: x[:, :, j, None] * cs[(j * v) & msk], k)
-    es, os_ = even_odd(lambda j: x[:, :, j, None] * sn[(j * v) & msk], k)
-    p, q = np.zeros((n, k, un), f), np.zeros((n, k, un), f)
-    p[:, :, hk - v], q[:, :, hk - v] = ec - oc, os_ - es
-    p[:, :, v], q[:, :, v] = ec + oc, es + os_
-    # columns: u in [0, K/2) pairs with u + K/2
-    u = np.arange(hk)
-    c = lambda i: cs[(u * i) & msk][None, :, None]
-    s = lambda i: sn[(u * i) & msk][None, :, None]
-    ea, oa = even_odd(lambda i: c(i) * p[:, i, None, :] - s(i) * q[:, i, None, :], k)
-    eb, ob = even_odd(lambda i: s(i) * p[:, i, None, :] + c(i) * q[:, i, None, :], k)
-    a = np.concatenate([ea + oa, ea - oa], axis=1)
-    b = np.concatenate([eb + ob, eb - ob], axis=1)
-    power = (a * a + b * b) + f(1e-15)
-    gain = np.maximum(power - s2[:, None, None], f(0)) / power
-    a, b = a * gain, b * gain
-    # inverse columns: i in [0, K/2) pairs with i + K/2
-    ec, oc = even_odd(lambda w: c(w) * a[:, w, None, :] + s(w) * b[:, w, None, :], k)
-    ed, od = even_odd(lambda w: c(w) * b[:, w, None, :] - s(w) * a[:, w, None, :], k)
-    vv = np.arange(un)
-    rho = np.where((vv == 0) | (vv == hk), inv_kk, f(2) * inv_kk).astype(f)
-    p = np.concatenate([(ec + oc) * rho, (ec - oc) * rho], axis=1)
-    q = np.concatenate([(ed + od) * rho, (ed - od) * rho], axis=1)
-    # inverse rows: j in [0, K/2) pairs with j + K/2
-    j = np.arange(hk)
-    e, o = even_odd(lambda w: cs[(w * j) & msk] * p[:, :, w, None]
-                    + sn[(w * j) & msk] * q[:, :, w, None], un)
-    acc = np.concatenate([e + o, e - o], axis=2)
-    w2i = wi[:, None] * wi[None, :]
-    return acc * w2i + m[:, None, None] * (w2f * w2i)
+def _wiener_core_float64(x, sig2, wf, wi, k):
+    """The function itself in float64 through numpy.fft, tile by tile."""
+    g, hh, ww = x.shape
+    tiles = x.astype(np.float64).reshape(g, hh // k, k, ww // k, k).transpose(0, 1, 3, 2, 4)
+    wf2 = np.outer(wf, wf).astype(np.float64)
+    wi2 = np.outer(wi, wi).astype(np.float64)
+    m = tiles.mean(axis=(-2, -1), keepdims=True)
+    spec = np.fft.rfft2((tiles - m) * wf2)
+    power = spec.real ** 2 + spec.imag ** 2 + 1e-15
+    s2 = np.repeat(sig2.astype(np.float64), g // sig2.size)[:, None, None, None, None]
+    y = np.fft.irfft2(spec * (np.maximum(power - s2, 0.0) / power), s=(k, k))
+    return (y * wi2 + m * (wf2 * wi2)).transpose(0, 1, 3, 2, 4).reshape(x.shape)
 
 
 @pytest.mark.parametrize('k,g,n_ty,n_tx,n_sig,offset', [
-    (32, 4, 2, 3, 1, 0.0), (16, 12, 3, 2, 3, 0.0), (32, 3, 1, 2, 3, -7.0), (16, 4, 2, 5, 4, -7.0)])
+    (32, 4, 2, 3, 1, 0.0), (16, 12, 3, 2, 3, 0.0), (32, 3, 1, 2, 3, -7.0), (16, 4, 2, 5, 4, -7.0),
+    # K = 16, 21 tiles: the last warp holds one pair, and that of a single tile
+    (16, 3, 1, 7, 3, 0.0),
+    # 18 tiles, 9 warps: the last block is one warp; and an odd count at K = 32
+    (32, 2, 3, 3, 2, -3.0), (32, 1, 1, 5, 1, 0.0),
+    # one tile; K = 16 over more than one block (72 tiles, 18 warps)
+    (32, 1, 1, 1, 1, 0.0), (16, 1, 1, 1, 1, -7.0), (16, 2, 6, 6, 2, 0.0)])
 def test_wiener_core_source_on_host(emu_lib, rng, k, g, n_ty, n_tx, n_sig, offset):
-    """Bit for bit against a numpy loop in the kernel's own summation order;
-    against the plain version (dense folded-basis einsums, another order,
+    """Against the plain version (dense folded-basis einsums, another order,
     the mean subtracted after the transform) within 2e-6 * max(1, max|x|):
-    float32 rounding of sums whose terms reach |x| * sum(wf2)."""
+    float32 rounding of sums whose terms reach |x| * sum(wf2); and against
+    the function in float64 (numpy.fft) within 2e-8 * max(1, max|x|): the
+    kernel's own rounding, an FFT's log2 K^2 additions deep, on outputs that
+    the two windows scale down to ~1e-2 |x| (observed 4e-9)."""
     x = (rng.random((g, n_ty * k, n_tx * k)) * 0.5 + offset).astype(np.float32)
     sig2 = (rng.random(n_sig) * 0.01 + 0.002).astype(np.float32)
-    wf, wi = _gaussian_window(k, 0.3), _gaussian_window(k, 0.3)
-    tab = _tables(k, wf.tobytes(), wi.tobytes(), torch.device('cpu')).numpy()
-    out = np.zeros_like(x)
+    wf, wi = _gaussian_window(k, 0.3), _gaussian_window(k, 0.25)
+    windows = np.ascontiguousarray(_windows(k, wf.tobytes(), wi.tobytes(),
+                                            torch.device('cpu')).numpy())
+    out = np.full_like(x, np.nan)
     fn = emu_lib['wiener_core'].wiener_core_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    assert fn(_p(x), _p(out), _p(sig2), _p(np.ascontiguousarray(tab)), k, g, n_ty, n_tx, n_sig,
-              None) == 0
-    tiles = x.reshape(g, n_ty, k, n_tx, k).transpose(0, 1, 3, 2, 4).reshape(-1, k, k)
-    s2 = np.repeat(sig2, g // n_sig * n_ty * n_tx)
-    ref = _wiener_core_in_kernel_order(tiles, s2, tab)
-    ref = ref.reshape(g, n_ty, n_tx, k, k).transpose(0, 1, 3, 2, 4).reshape(x.shape)
-    np.testing.assert_array_equal(out, ref)
+    assert fn(_p(x), _p(out), _p(sig2), _p(windows), k, g, n_ty, n_tx, n_sig, None) == 0
+    scale = max(1.0, np.abs(x).max())
+    exact = _wiener_core_float64(x, sig2, wf, wi, k)
+    assert np.abs(out - exact).max() <= 2e-8 * scale
     plain = wiener_tile_core_plain(torch.from_numpy(x), torch.from_numpy(sig2), wf, wi, k=k).numpy()
-    assert np.abs(out - plain).max() <= 2e-6 * max(1.0, np.abs(x).max())
+    assert np.abs(out - plain).max() <= 2e-6 * scale

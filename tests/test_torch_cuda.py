@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from tpu_darktable_torch import kernels
+from tpu_darktable_torch.denoise import Wiener
+from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral_band_plain
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused, bilateral_fused_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz, grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core, nlm_core_plain
@@ -110,28 +112,49 @@ def test_bilateral_fused_on_card(dev, h, w, s, gz, sr, z_mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('k,g,n_sig,offset', [(32, 16, 1, -6.0), (16, 12, 3, 0.0), (16, 192, 3, 0.0)])
-def test_wiener_core_on_card(dev, k, g, n_sig, offset):
-    """Against the dense folded-basis einsums: 2e-6 * max(1, max|x|) (sums in
-    another order, the mean subtracted before the transform, not after)."""
-    x = _rand(7, (g, 3 * k, 5 * k), dev) * 0.5 + offset
+@pytest.mark.parametrize('k,shape,n_sig,offset', [
+    (32, (16, 96, 160), 1, -6.0), (16, (12, 48, 80), 3, 0.0), (16, (192, 48, 80), 3, 0.0),
+    (32, (3, 96, 160), 3, 0.0), (16, (1, 48, 112), 1, -6.0),   # C = 3 at K = 32; odd tile counts
+    (32, (1, 32, 32), 1, 0.0), (16, (1, 16, 16), 1, -3.0),     # a slab of one tile
+    (32, (16, 3072, 4160), 1, -4.0), (16, (12, 1536, 2080), 3, 0.0)])   # 4096x3000, 2048x1500
+def test_wiener_core_on_card(dev, k, shape, n_sig, offset):
+    """The FFT kernel against the dense folded-basis einsums: 2e-6 *
+    max(1, max|x|) (sums in another order, the mean subtracted before the
+    transform, not after)."""
+    x = _rand(7, shape, dev) * 0.5 + offset
     sig2 = _rand(8, (n_sig,), dev) * 0.01 + 0.002
-    wf = wiener._gaussian_window(k, 0.3)
-    err = (wiener_tile_core(x, sig2, wf, wf, k=k) - wiener_tile_core_plain(x, sig2, wf, wf, k=k))
+    wf, wi = wiener._gaussian_window(k, 0.3), wiener._gaussian_window(k, 0.25)
+    err = (wiener_tile_core(x, sig2, wf, wi, k=k) - wiener_tile_core_plain(x, sig2, wf, wi, k=k))
     assert err.abs().max().item() <= 2e-6 * max(1.0, abs(offset) + 0.5)
 
 
 @pytest.mark.cuda
-def test_opt_in_routes_launch_their_kernels(dev):
+@pytest.mark.parametrize('s', [1, 2, 8])
+def test_bilateral_band_on_card_equals_fused(dev, s):
+    """One source behind both wrappers: equal (0) with the derivative z
+    taps, one launch each, and within 1e-6 of the plain version."""
+    lum = _rand(10, (240, 368), dev) * 0.95
+    kernels.reset_launches()
+    a = bilateral_band(lum, s=s, gz=6, sigma_r=0.2)
+    b = bilateral_fused(lum, s=s, gz=6, sigma_r=0.2)
+    assert torch.equal(a, b)
+    assert kernels.launches['bilateral_band'] == 1 and kernels.launches['bilateral_fused'] == 1
+    assert (a - bilateral_band_plain(lum, s=s, gz=6, sigma_r=0.2)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_routes_launch_their_kernels(dev):
+    """The tile-core route, the Wiener class and the bilateral fast path on
+    CUDA tensors launch their kernels; the separable route launches none."""
     kernels.reset_launches()
     img = _rand(9, (96, 128, 3), dev)
     a = wiener.wiener_denoise(img, 0.05, 16, 4, use_separable=False)
     b = wiener.wiener_denoise(img, 0.05, 16, 4)
     assert (a - b).abs().max().item() <= 1e-4
-    lum = img[..., 0].contiguous()
-    c = bilateral.bilateral_process(lum, 2.0, 0.2, 0.4, _use_fused_kernel=True)
-    d = bilateral.bilateral_process(lum, 2.0, 0.2, 0.4)
-    assert (c - d).abs().max().item() <= 1e-6
     assert kernels.launches['wiener_tile_core'] == 1
-    assert kernels.launches['bilateral_fused'] == 1
+    c = Wiener(dev, (128, 96), tile_size=16).process(img, 0.05)
+    assert torch.equal(a, c) and kernels.launches['wiener_tile_core'] == 2
+    lum = img[..., 0].contiguous()
+    bilateral.bilateral_process(lum, 2.0, 0.2, 0.4)
     assert kernels.launches['bilateral_band'] == 1
+    assert kernels.launches['bilateral_fused'] == 0

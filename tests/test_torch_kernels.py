@@ -27,6 +27,7 @@ from tpu_darktable_torch.kernels.wavelet import wavelet_core
 from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core
 from tpu_darktable_torch.ops import bilateral as tbil
 from tpu_darktable_torch.ops import rcd as trcd
+from tpu_darktable_torch.ops import wiener as twiener
 from tpu_darktable_torch.ops.bayer import BayerPattern as TPattern, site_parities
 
 torch.set_num_threads(1)
@@ -145,6 +146,10 @@ def test_cpu_runs_plain_versions_and_counts_nothing(rng):
     wf = np.full(16, 0.25, np.float32)
     wiener_tile_core(torch.stack([x, x]), torch.tensor([0.01]), wf, wf, k=16)
     bilateral_fused(x, s=2, gz=6, sigma_r=0.2)
+    # and through the stage functions the pipeline calls
+    tbil.bilateral_process(x, 2.0, 0.2, 0.4)
+    twiener.wiener_denoise(torch.from_numpy(rng.random((96, 128)).astype(np.float32)), 0.05, 16, 4,
+                           use_separable=False)
     assert kernels.launches == {'rcd_interior': 0, 'color_smooth_diffs': 0, 'bilateral_band': 0,
                                 'grid_blur_xyz': 0, 'wavelet_core': 0, 'nlm_core': 0,
                                 'wiener_tile_core': 0, 'bilateral_fused': 0}

@@ -387,6 +387,29 @@ def test_fused_matches_piecewise(rng, extra):
     assert _counts(piecewise, _piecewise_j(jp, data)) <= 1
 
 
+@pytest.mark.parametrize('size', [(128, 96), (320, 240)])
+def test_fused_and_piecewise_share_the_tile_core_route(rng, monkeypatch, size):
+    """Both entry points send the Wiener stage through kernels/wiener_core.py,
+    once a frame, and agree within 1 count."""
+    from tpu_darktable_torch.ops import wiener as twiener
+
+    seen = []
+    real = twiener.wiener_tile_core
+    monkeypatch.setattr(twiener, 'wiener_tile_core',
+                        lambda slabs, *a, **kw: seen.append(tuple(slabs.shape))
+                        or real(slabs, *a, **kw))
+    js = _jsettings()
+    w, h = size
+    data, _ = _bytes(h, w, rng, smooth=True)
+    _, tp = _procs(js, size=size)
+    fused = tp.process(data, 'x').numpy()
+    assert len(seen) == 1
+    _, tp2 = _procs(js, size=size)
+    piecewise = _piecewise_t(tp2, data).numpy()
+    assert len(seen) == 2 and seen[0] == seen[1] and seen[0][0] == 16   # C = 1, overlap 4
+    assert _counts(fused, piecewise) <= 1
+
+
 @pytest.mark.parametrize('debayer,tone', [('ppg', 'linear'), ('bilinear', 'filmic'),
                                           ('ppg', 'adaptive_aces'), ('bilinear', 'aces'),
                                           ('rcd', 'filmic'), ('rcd', 'linear')])

@@ -1,9 +1,12 @@
-"""The two opt-in kernel routes of the port against the JAX package, on the
-CPU (where the wrappers run their plain versions): the Wiener tile-domain
-route against JAX's Pallas tile core (interpret mode) and its stacked
-einsum branch, and the fused bilateral detail term against JAX's fused
-kernel (interpret mode) and the band kernel's plain version.
+"""The Wiener tile-core route (the pipeline's) and the fused bilateral
+detail term against the JAX package, on the CPU (where the wrappers run
+their plain versions): the tile-domain route against JAX's Pallas tile core
+(interpret mode) and its stacked einsum branch; `kernels.bilateral_fused`
+through its wrapper against JAX's fused kernel (interpret mode) and JAX's
+fast path; and which route the `Wiener` class takes.
 """
+
+import inspect
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ from tpu_darktable.kernels.bilateral_fused import bilateral_fused as j_fused
 from tpu_darktable.ops import bilateral as jbil
 from tpu_darktable.ops import wiener as jwiener
 
+from tpu_darktable_torch import denoise as tdenoise
 from tpu_darktable_torch import kernels
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused, bilateral_fused_plain
 from tpu_darktable_torch.kernels.wiener_core import (folded_bases, wiener_tile_core,
@@ -143,22 +147,55 @@ def test_bilateral_fused_gaussian_z_vs_pallas_interpret(rng):
     assert np.abs(out - ref).max() < 1e-5
 
 
-@pytest.mark.parametrize('sigma_s,fused_calls', [(2.0, 1), (3.0, 0)])
-def test_bilateral_process_fused_route_vs_jax(rng, monkeypatch, sigma_s, fused_calls):
-    """bilateral_process(_use_fused_kernel=True) against the JAX fast path
-    (2e-6, the bar the port's default route is held to); on a non-fast
-    geometry (3 does not divide 128) it takes the general path, as in JAX,
-    and never calls the kernel."""
-    calls = []
-    real = tbil.bilateral_fused
-    monkeypatch.setattr(tbil, 'bilateral_fused',
-                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    lum = (rng.random((96, 128)) * 0.9).astype(np.float32)
-    ref = np.asarray(jbil.bilateral_process(jnp.asarray(lum), sigma_s, 0.2, 0.4,
+@pytest.mark.parametrize('h,w,s,sr', [(96, 128, 2, 0.2), (64, 128, 8, 0.2)])
+def test_bilateral_fused_wrapper_vs_jax_fast_path(rng, h, w, s, sr):
+    """kernels.bilateral_fused through its wrapper, as the detail term of
+    the fast path, against the JAX fast path (2e-6, the bar the port's
+    bilateral_process is held to) and equal to bilateral_process, which
+    calls kernels.bilateral_band for the same function."""
+    lum = (rng.random((h, w)) * 0.9).astype(np.float32)
+    _, _, gz = jbil.compute_grid_size(w, h, float(s), sr)
+    ref = np.asarray(jbil.bilateral_process(jnp.asarray(lum), float(s), sr, 0.4,
                                             _use_pallas_blur=False))
-    out = tbil.bilateral_process(_t(lum), sigma_s, 0.2, 0.4, _use_fused_kernel=True)
-    assert len(calls) == fused_calls
+    l_diff = bilateral_fused(_t(lum), s=s, gz=gz, sigma_r=float(sr))
+    out = torch.clamp(_t(lum) + (-0.4 * sr * 4.0) * l_diff, min=0.0)
     assert np.abs(out.numpy() - ref).max() <= 2e-6
+    assert torch.equal(out, tbil.bilateral_process(_t(lum), float(s), sr, 0.4))
+    assert kernels.launches['bilateral_fused'] == 0   # CPU: the plain version, no launch
+
+
+def test_bilateral_process_has_no_kernel_switch(rng, monkeypatch):
+    """The fast path calls kernels.bilateral_band once; a geometry off it
+    (3 does not divide 128) takes the general path and never calls it."""
+    calls = []
+    real = tbil.bilateral_band
+    monkeypatch.setattr(tbil, 'bilateral_band', lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    lum = _t((rng.random((96, 128)) * 0.9).astype(np.float32))
+    tbil.bilateral_process(lum, 3.0, 0.2, 0.4)
+    assert calls == []
+    tbil.bilateral_process(lum, 2.0, 0.2, 0.4)
+    assert calls == [dict(s=2, gz=6, sigma_r=0.2)]
+    assert list(inspect.signature(tbil.bilateral_process).parameters) == [
+        'luminance', 'sigma_s', 'sigma_r', 'detail']
+
+
+@pytest.mark.parametrize('store,core_calls', [(None, 1), (torch.float16, 0)])
+def test_wiener_class_route(rng, monkeypatch, store, core_calls):
+    """Built without a storage dtype the Wiener class takes the tile-core
+    route (nothing to store); with one, the separable einsums, where the
+    storage lives.  Either way within 1e-3 of the JAX class."""
+    import tpu_darktable as td
+
+    seen = []
+    real = twiener.wiener_tile_core
+    monkeypatch.setattr(twiener, 'wiener_tile_core',
+                        lambda *a, **kw: seen.append(1) or real(*a, **kw))
+    img = rng.random((96, 128, 3)).astype(np.float32)
+    kw = {} if store is None else dict(spectral_dtype=store, storage_dtype=store)
+    out = tdenoise.Wiener('cpu', (128, 96), **kw).process(_t(img), 0.05)
+    assert len(seen) == core_calls
+    ref = np.asarray(td.Wiener(None, (128, 96)).process(jnp.asarray(img), 0.05))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-3)
 
 
 def test_bilateral_fused_wrapper_checks():

@@ -1,13 +1,15 @@
 // Fused bilateral-grid detail term for Hopper (sm_90a): splat, blur x, y, z
 // and slice in ONE launch, the grid never leaving shared memory.
 //
-// Replaces the TPU kernel tpu_darktable/kernels/bilateral_fused.py:bilateral_fused.
+// Replaces the TPU kernels tpu_darktable/kernels/bilateral_fused.py:bilateral_fused
+// and, with the derivative z taps, tpu_darktable/kernels/bilateral_band.py:bilateral_band:
+// there two generations of one band-resident fusion that differ in their
+// lane layout, here one source behind both wrappers.
 // For an integer sigma_s = s dividing the frame:
 //   l_diff = slice(blur_z(blur_y(blur_x(splat(lum)))))
 // with the z-tent splat of weight 1/s^2, 5-tap gaussian x and y, derivative
 // or gaussian z, zero truncation at the grid's edge after every pass, and a
-// trilinear slice at each pixel's own z.  The same function as
-// csrc/bilateral_band.cu, which runs it as five launches over a grid in HBM.
+// trilinear slice at each pixel's own z.
 //
 // Design.  A block owns a T x T tile of output pixels.  Its slice reads the
 // grid cells [y0/s, (y0+T-1)/s + 1] a side; the block builds those plus a
@@ -28,8 +30,11 @@
 // and the two grid buffers (66 KB at T = 64, s = 2, gz = 6) hold a
 // multiprocessor to two or three blocks, so the block is 512 threads.
 //
-// The sums run in the order of csrc/bilateral_band.cu and of the plain
-// version (kernels/bilateral_fused.py); with --fmad=false they round alike.
+// The sums run in the order of the plain version
+// (kernels/bilateral_band.py:bilateral_band_plain); with --fmad=false they
+// round alike.  A chain of five launches over a grid in HBM (splat, three
+// blurs, slice) computed the same bits and was slower at every sigma_s but
+// 8, where the two tied.
 
 #include <cuda_runtime.h>
 
@@ -237,7 +242,9 @@ extern "C" int bilateral_fused_launch(const float* lum, float* l_diff, int h, in
   }
   if (g.tile == 0) return (int)cudaErrorInvalidValue;
   const int smem = (int)(floats * sizeof(float));
-  cudaFuncSetAttribute(bilateral_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int status = (int)cudaFuncSetAttribute(
+      bilateral_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (status != 0) return status;
   const dim3 grid((w + g.tile - 1) / g.tile, (h + g.tile - 1) / g.tile, 1);
   bilateral_fused_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       lum, l_diff, g);

@@ -26,7 +26,9 @@ class Wiener:
                  overlap_factor: int = 4, tile_size: int = 32, *,
                  spectral_dtype=None, storage_dtype=None):
         """spectral_dtype/storage_dtype: optional float16 STORAGE of the
-        spectral intermediates (ops/wiener.py); the math stays float32."""
+        spectral intermediates of the separable einsum route (ops/wiener.py);
+        the math stays float32.  Without either, `process` takes the
+        tile-core route (kernels/wiener_core.py), which stores nothing."""
         if image_size is None and isinstance(device, (tuple, list)):
             device, image_size = None, tuple(device)
         if image_size is None:
@@ -74,8 +76,9 @@ class Wiener:
             if tuple(sigmas.shape) != (channels,):
                 raise ValueError(
                     f'noise tensor must have {channels} elements for {channels}-channel image')
+        stores = self._spectral_dtype is not None or self._storage_dtype is not None
         return _wiener_denoise(image, sigmas, tile_size=self._tile_size,
-                               overlap_factor=self._overlap_factor,
+                               overlap_factor=self._overlap_factor, use_separable=stores,
                                spectral_dtype=self._spectral_dtype,
                                storage_dtype=self._storage_dtype)
 

@@ -20,10 +20,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+# One library a source; bilateral_fused.cu serves kernels/bilateral_band.py too.
 SOURCES = {
     'rcd_interior': 'rcd_interior.cu',
     'color_smooth_diffs': 'color_smooth.cu',
-    'bilateral_band': 'bilateral_band.cu',
     'grid_blur_xyz': 'grid_blur.cu',
     'wavelet_core': 'wavelet.cu',
     'nlm_core': 'nlm.cu',

@@ -1,18 +1,19 @@
-"""Bilateral-grid detail term: wrapper of csrc/bilateral_band.cu and its
-plain version.
+"""Bilateral-grid detail term: wrapper of the one-launch kernel in
+csrc/bilateral_fused.cu (with the derivative z blur) and the plain version.
 
 Replaces the TPU kernel tpu_darktable/kernels/bilateral_band.py:bilateral_band
 (+ riffle_phases): for an integer sigma_s = s dividing the frame, z-tent
 splat -> 5-tap gaussian x, gaussian y, derivative z (zero truncation) ->
 trilinear slice, giving l_diff at (H, W).
 
-On the H100 the function's floor is its ~94 float ops a pixel (s=2, gz=6),
-just above its 8 bytes a pixel (lum read once, l_diff written once); the
-short chain of launches (splat, three blurs, slice) adds a grid of
-gz * (H/s + 1) * (W/s + 1) floats passed through HBM, which bounds it in
-practice.  The splat is in
-gather form (each cell reads its 2s x 2s pixel window), so no atomics and
-a fixed summation order.
+In the JAX package bilateral_band and bilateral_fused are two generations
+of one band-resident fusion that differ in their TPU lane layout.  On the
+H100 the function has one good design, so both wrappers launch the same
+source: a block builds the grid cells its pixel tile slices, plus the blur
+halo, in shared memory, and the grid never crosses HBM.  The function's
+floor is its ~94 float ops a pixel (s=2, gz=6), just above its 8 bytes a
+pixel (lum read once, l_diff written once).  This module keeps the plain
+version both wrappers are held against.
 """
 
 from __future__ import annotations
@@ -25,9 +26,7 @@ from . import launches
 from .grid_blur import grid_blur_xyz_plain
 
 
-def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> torch.Tensor:
-    """(H, W) float32 luminance -> (H, W) float32 l_diff on the
-    (gz, H/s + 1, W/s + 1) grid; H and W must divide by s."""
+def check_plane(lum: torch.Tensor, s: int, gz: int) -> None:
     if lum.dtype != torch.float32 or lum.ndim != 2:
         raise RuntimeError(f'lum must be a 2-D float32 tensor, got {lum.dtype} {tuple(lum.shape)}')
     h, w = lum.shape
@@ -35,24 +34,37 @@ def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> tor
         raise ValueError(f'sigma_s {s} must divide the frame {h}x{w}')
     if gz < 2:
         raise ValueError(f'gz must be >= 2, got {gz}')
+
+
+def launch_detail_term(lum: torch.Tensor, s: int, gz: int, sigma_r: float,
+                       z_gauss: bool) -> torch.Tensor:
+    """One launch of csrc/bilateral_fused.cu on a CUDA plane; the caller
+    counts it."""
+    from ._build import check, load
+
+    fn = load('bilateral_fused').bilateral_fused_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    x = lum.contiguous()
+    out = torch.empty_like(x)
+    h, w = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(fn(x.data_ptr(), out.data_ptr(), h, w, s, gz, float(sigma_r), int(z_gauss), stream),
+              'bilateral_fused_launch')
+    return out
+
+
+def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> torch.Tensor:
+    """(H, W) float32 luminance -> (H, W) float32 l_diff on the
+    (gz, H/s + 1, W/s + 1) grid; H and W must divide by s."""
+    check_plane(lum, s, gz)
     if lum.device.type == 'cpu':
         return bilateral_band_plain(lum, s=s, gz=gz, sigma_r=sigma_r)
     if not lum.is_cuda:
         raise RuntimeError(f'bilateral_band: unsupported device {lum.device}')
-    from ._build import check, load
-
-    fn = load('bilateral_band').bilateral_band_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    x = lum.contiguous()
-    out = torch.empty_like(x)
-    grid_a = torch.empty((gz, h // s + 1, w // s + 1), dtype=torch.float32, device=x.device)
-    grid_b = torch.empty_like(grid_a)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(x.data_ptr(), out.data_ptr(), grid_a.data_ptr(), grid_b.data_ptr(),
-                 h, w, s, gz, float(sigma_r), stream),
-              'bilateral_band')
+    out = launch_detail_term(lum, s, gz, sigma_r, z_gauss=False)
     launches['bilateral_band'] += 1
     return out
 

@@ -9,14 +9,15 @@ the inverse transform times wi2, plus m * wf2 * wi2.
 On the H100 the function is bound by its 8 bytes a pixel: a real 2-D FFT
 each way needs ~74 float operations a pixel at K = 32, less than the bytes
 cost.  The TPU kernel's dense folded-basis product costs O(K^4) a tile;
-the Hopper kernel transforms rows then columns in shared memory, O(K^3)
-and halved once more by pairing the outputs n and n + K/2 (three times an
-FFT's operations: a first design, to be replaced by a full radix-2), and
-reads the tiles in place from the slabs' spatial layout, so the two tile-major
-transposes of the TPU path are gone.  The plain version keeps
-the dense folded-basis einsums (the JAX package's stacked formulation); the
-two differ by float32 rounding only: their sums run in different orders,
-and the plain version subtracts the mean after the transform.
+the Hopper kernel is a radix-2 FFT in registers: a warp transforms two
+tiles at once as one complex tile (columns in the lanes' registers, one
+transpose through shared memory, rows, the two spectra split by a warp
+shuffle, gain, and the same steps back), and reads and writes the tiles in
+place in the slabs' spatial layout, so the two tile-major transposes of the
+TPU path are gone.  The plain version keeps the dense folded-basis einsums
+(the JAX package's stacked formulation); the two differ by float32 rounding
+only: their sums run in different orders, and the plain version subtracts
+the mean after the transform.
 """
 
 from __future__ import annotations
@@ -52,15 +53,9 @@ def _check(slabs: torch.Tensor, sig2: torch.Tensor, wf, wi, k: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _tables(k: int, wf_bytes: bytes, wi_bytes: bytes, device: torch.device) -> torch.Tensor:
-    """(4, K) float32 on the device: cos and sin of 2 pi n / K (computed in
-    float64, exact zeros kept exact), then the two windows."""
-    ang = 2.0 * np.pi * np.arange(k, dtype=np.float64) / k
-    cs, sn = np.cos(ang), np.sin(ang)
-    cs[np.abs(cs) < 1e-12] = 0.0
-    sn[np.abs(sn) < 1e-12] = 0.0
-    tab = np.stack([cs.astype(np.float32), sn.astype(np.float32),
-                    np.frombuffer(wf_bytes, np.float32), np.frombuffer(wi_bytes, np.float32)])
+def _windows(k: int, wf_bytes: bytes, wi_bytes: bytes, device: torch.device) -> torch.Tensor:
+    """(2, K) float32 on the device: the analysis and the synthesis window."""
+    tab = np.stack([np.frombuffer(wf_bytes, np.float32), np.frombuffer(wi_bytes, np.float32)])
     return torch.as_tensor(tab, device=device)
 
 
@@ -84,13 +79,13 @@ def wiener_tile_core(slabs: torch.Tensor, sig2: torch.Tensor, wf: np.ndarray, wi
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     g, hh, ww = slabs.shape
-    tables = _tables(k, np.asarray(wf, np.float32).tobytes(), np.asarray(wi, np.float32).tobytes(),
-                     slabs.device)
+    windows = _windows(k, np.asarray(wf, np.float32).tobytes(),
+                       np.asarray(wi, np.float32).tobytes(), slabs.device)
     sig2 = sig2.contiguous()
     out = torch.empty_like(slabs)
     with torch.cuda.device(slabs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        check(fn(slabs.data_ptr(), out.data_ptr(), sig2.data_ptr(), tables.data_ptr(),
+        check(fn(slabs.data_ptr(), out.data_ptr(), sig2.data_ptr(), windows.data_ptr(),
                  k, g, hh // k, ww // k, sig2.numel(), stream), 'wiener_tile_core')
     launches['wiener_tile_core'] += 1
     return out

@@ -8,8 +8,7 @@ the z coordinate depends on the data, and the grid is built one z slab at
 a time.  Two paths compute the detail boost:
 
 - the integer fast path (sigma_s an integer dividing the frame): the
-  whole detail term in kernels/bilateral_band.py, or on request in the
-  single-launch kernels/bilateral_fused.py;
+  whole detail term in one launch of kernels/bilateral_band.py;
 - the general path (any other sigma_s or frame): windowed splat, the grid
   blur of kernels/grid_blur.py, and a gathered trilinear slice.
 
@@ -26,7 +25,6 @@ import numpy as np
 import torch
 
 from ..kernels.bilateral_band import bilateral_band
-from ..kernels.bilateral_fused import bilateral_fused
 from ..kernels.grid_blur import grid_blur_xyz
 
 _F32 = torch.float32
@@ -164,12 +162,11 @@ def _as_plane(luminance) -> torch.Tensor:
 
 
 def bilateral_process(luminance: torch.Tensor, sigma_s: float, sigma_r: float,
-                      detail: float, _use_fused_kernel: bool = False) -> torch.Tensor:
+                      detail: float) -> torch.Tensor:
     """Detail boost on an (H, W) luminance plane; returns the processed plane.
 
-    `_use_fused_kernel` sends the integer fast path through the single-launch
-    kernels/bilateral_fused.py instead of kernels/bilateral_band.py (the
-    same function); other geometries take the general path either way."""
+    The JAX package's fast path has a switch between two TPU generations of
+    its kernel; the port has one kernel there and no switch."""
     lum = _as_plane(luminance)
     h, w = lum.shape
     gx, gy, gz = compute_grid_size(w, h, sigma_s, sigma_r)
@@ -180,8 +177,7 @@ def bilateral_process(luminance: torch.Tensor, sigma_s: float, sigma_r: float,
         and gx == w // s_int + 1 and gy == h // s_int + 1
     )
     if fast:
-        detail_term = bilateral_fused if _use_fused_kernel else bilateral_band
-        l_diff = detail_term(lum, s=s_int, gz=gz, sigma_r=float(sigma_r))
+        l_diff = bilateral_band(lum, s=s_int, gz=gz, sigma_r=float(sigma_r))
         return torch.clamp(lum + norm * l_diff, min=0.0)
 
     op = _windowed(h, w, gx, gy, float(sigma_s), lum.device)

@@ -18,13 +18,16 @@ go through kernels/wiener_core.py (every K x K tile transformed, gained and
 reconstructed in one kernel on the card; the stacked folded-rDFT einsums,
 its plain version, on the CPU) and the reconstructed slabs are overlap-added
 as ov^2 slices.  It covers both the JAX package's `use_pallas=True` and its
-`use_separable=False` branch, which compute the same thing.
+`use_separable=False` branch, which compute the same thing.  The pipeline
+and the `Wiener` class built without a storage dtype take this route.
 
 Frames too small for the reflect-pad fast path take the per-coset gather
 path with the same folded rDFT basis, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -53,6 +56,23 @@ def _gaussian_window(k: int, weight: float) -> np.ndarray:
     vals = np.exp(-(r * r) / scale)
     vals = vals / np.sqrt(np.sum(vals * vals))
     return vals.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _weight_sum_1d(n_pad: int, grid_n: int, k: int, stride: int, fft_scale: float,
+                   interp_scale: float, dev: torch.device) -> torch.Tensor:
+    """The overlap-add weight along one axis of the padded frame: the sum of
+    wf * wi over the tiles that cover each position.  It depends on the
+    geometry alone, so it is built once and kept on the device (the pipeline
+    calls the Wiener stage every frame)."""
+    wprod = _gaussian_window(k, fft_scale) * _gaussian_window(k, interp_scale)
+    m = np.zeros(n_pad, dtype=np.float64)
+    for g in range(grid_n):
+        o = g * stride
+        end = min(o + k, n_pad)
+        if end > o:
+            m[o:end] += wprod[: end - o]
+    return torch.as_tensor(m.astype(np.float32), device=dev)
 
 
 def _reflect_index(idx: np.ndarray, limit: int) -> np.ndarray:
@@ -181,8 +201,7 @@ def _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
               (0, 0, 0, 0, p * stride, acc_h - n_ty * k - p * stride))
         for p in range(ov)
     )
-    mask = mrow[:, None] * mcol[None, :]
-    return out[k : k + h, k : k + w] / (mask[k : k + h, k : k + w, None] + _EPS)
+    return _divide_by_weight(out[k : k + h, k : k + w], mrow, mcol, k)
 
 
 def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
@@ -227,19 +246,8 @@ def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
     grid_w = (w + k + stride - 1) // stride + ov
     wf = _gaussian_window(k, fft_scale)
     wi = _gaussian_window(k, interp_scale)
-    wprod = wf * wi
-
-    def _mask_1d(n_pad, grid_n):
-        m = np.zeros(n_pad, dtype=np.float64)
-        for g in range(grid_n):
-            o = g * stride
-            end = min(o + k, n_pad)
-            if end > o:
-                m[o:end] += wprod[: end - o]
-        return torch.as_tensor(m.astype(np.float32), device=dev)
-
-    mrow = _mask_1d(h_pad, grid_h)
-    mcol = _mask_1d(w_pad, grid_w)
+    mrow = _weight_sum_1d(h_pad, grid_h, k, stride, fft_scale, interp_scale, dev)
+    mcol = _weight_sum_1d(w_pad, grid_w, k, stride, fft_scale, interp_scale, dev)
 
     padded = _reflect_pad(x, k, ov)
     if padded is not None:
@@ -248,9 +256,15 @@ def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
             return _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
                                      spectral_dtype=spectral_dtype, storage_dtype=storage_dtype)
         recon = wiener_tile_core(_coset_slabs(xr, k, ov, n_ty, n_tx), sigmas * sigmas, wf, wi, k=k)
-        return _overlap_add(recon, h, w, c, k, ov) / (
-            (mrow[:, None] * mcol[None, :])[k : k + h, k : k + w, None] + _EPS)
+        return _divide_by_weight(_overlap_add(recon, h, w, c, k, ov), mrow, mcol, k)
     return _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol)
+
+
+def _divide_by_weight(acc: torch.Tensor, mrow: torch.Tensor, mcol: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """The overlap-added (H, W, C) crop over its summed window weights."""
+    h, w, _ = acc.shape
+    return acc / ((mrow[k : k + h, None] * mcol[None, k : k + w])[..., None] + _EPS)
 
 
 def _reflect_pad(x: torch.Tensor, k: int, ov: int):
@@ -337,8 +351,7 @@ def _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol):
                      ).reshape(n_ty * k, n_tx * k, c)
             acc[out_r0 : out_r0 + n_keep_r, out_c0 : out_c0 + n_keep_c] += \
                 recon[:n_keep_r, :n_keep_c]
-    mask = mrow[:, None] * mcol[None, :]
-    return acc[k : k + h, k : k + w] / (mask[k : k + h, k : k + w, None] + _EPS)
+    return _divide_by_weight(acc[k : k + h, k : k + w], mrow, mcol, k)
 
 
 def _median_rows(x: torch.Tensor) -> torch.Tensor:

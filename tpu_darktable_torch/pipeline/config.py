@@ -68,6 +68,9 @@ class ImageProcessingSettings:
     enable_denoise: bool = True
     denoise: float = _ranged(0.075, 0.0, 1.0)
     denoise_overlap: int = _ranged(4, 2, 8)
+    # Kept for the JAX package's schema (its FULL stores the Wiener
+    # intermediates in float16).  No effect here: the pipeline's Wiener stage
+    # is the tile core, which keeps nothing between its transforms to store.
     denoise_f16: bool = True
 
     tone_mapping: ToneMapper = ToneMapper.reinhard

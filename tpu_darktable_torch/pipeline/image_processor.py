@@ -83,7 +83,6 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
     _check_ported(settings)
     width, height = image_size
     ids = packed_format is PackedFormat.Packed12_IDS
-    sdt = torch.float16 if settings.denoise_f16 else None
 
     def _sample_plane(rgb):
         return rgb[::8, ::8]
@@ -124,9 +123,11 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
         eps = 1e-4
         lab, lum = _color.rgb_to_lab_with_clipped_l(rgb)  # normalize output: not clipped
         log_lum = torch.log(torch.clamp(lum, min=eps))
+        # the tile-core route (kernels/wiener_core.py); it keeps nothing between
+        # its transforms, so settings.denoise_f16 has nothing to store
         den = _wiener.wiener_denoise(
             log_lum[..., None], settings.denoise, tile_size=32,
-            overlap_factor=settings.denoise_overlap, spectral_dtype=sdt, storage_dtype=sdt,
+            overlap_factor=settings.denoise_overlap, use_separable=False,
         )[..., 0]
         return _color.lab_modify_luminance(lab, torch.exp(den + eps))
 
@@ -210,10 +211,8 @@ class ImageProcessor:
             self.device, self.image_size, self.bayer_pattern,
             color_smoothing_passes=s.color_smoothing_passes, green_eq_local=False,
             green_eq_global=True, green_eq_threshold=s.green_eq_threshold)
-        sdt = torch.float16 if s.denoise_f16 else None
         self.wiener_workspace = Wiener(self.device, self.image_size,
-                                       overlap_factor=s.denoise_overlap,
-                                       spectral_dtype=sdt, storage_dtype=sdt)
+                                       overlap_factor=s.denoise_overlap)
 
     def __repr__(self) -> str:
         wb = self.white_balance
