@@ -1,25 +1,31 @@
-"""Paired timings of two kernels against their earlier sources, on one GPU.
+"""Paired timings of kernels against their earlier sources, on one GPU.
 
     python3 chip_pairs.py --parent DIR [--out FILE.json]
 
-DIR holds the earlier sources, which are no longer in the tree:
+DIR holds earlier sources, which are no longer in the tree; each section
+below runs only where DIR holds its parent source:
 
-    git show REV:tpu_darktable_torch/csrc/bilateral_band.cu > DIR/bilateral_band.cu
-    git show REV:tpu_darktable_torch/csrc/wiener_core.cu > DIR/wiener_core.cu
+    git show 862cd2f:tpu_darktable_torch/csrc/rcd_interior.cu > DIR/rcd_interior.cu
+    git show a3c1ad5:tpu_darktable_torch/csrc/wiener_core.cu > DIR/wiener_core.cu
+    git show a3c1ad5:tpu_darktable_torch/csrc/bilateral_band.cu > DIR/bilateral_band.cu
 
-(REV: the last commit that has the five-launch bilateral chain and the
-paired-DFT Wiener tile core, a3c1ad5).  They are built with the port's nvcc flags and
-run in turns with the sources of the tree (earlier, new, new, earlier; three
-rounds of 20 launches, CUDA events), so that the card's clock and power
-state are shared by both:
+(862cd2f: the last commit with the one-pixel-a-thread RCD cascade; a3c1ad5:
+the last with the five-launch bilateral chain and the paired-DFT Wiener tile
+core).  They are built with the port's nvcc flags and run in turns with the
+sources of the tree (earlier, new, new, earlier; three rounds of 20
+launches, CUDA events), so that the card's clock and power state are shared
+by both:
 
+  - rcd_interior at 4096x3000 RGGB: the new kernel and a few variants of
+    it (tile shape, threads a block, blocks an SM; each built from the
+    tree's source with a substitution) against the earlier source, with
+    each one's max |diff| to the plain version (must be 0);
   - wiener_tile_core on (16, 3072, 4160) slabs at K = 32 (the coset slabs
     of a 4096x3000 plane at overlap 4) and on (12, 1536, 2080) at K = 16;
     the new kernel's error against its plain version, its difference to
     the earlier kernel, and the same turns for a few variants of the new
     source (warps a block and blocks an SM, streaming loads and stores,
-    approximate division), each built from the tree's source with a
-    substitution;
+    approximate division);
   - the bilateral detail term at 4096x3000 for sigma_s 1, 2, 8 and for
     gz = 51: the five-launch source against the one-launch source that now
     serves both wrappers, and max |diff| between them.
@@ -63,6 +69,41 @@ WIENER_VARIANTS = {   # NxM: N warps a block, M blocks an SM
     'fdividef': [('fmaxf(pa - s2a, 0.0f) / pa', '__fdividef(fmaxf(pa - s2a, 0.0f), pa)'),
                  ('fmaxf(pb - s2b, 0.0f) / pb', '__fdividef(fmaxf(pb - s2b, 0.0f), pb)')],
 }
+
+# name -> substitutions on csrc/rcd_interior.cu (64x32 px tiles, 16 warps a
+# block, two blocks an SM); tile in px, threads x blocks an SM
+_TQX, _TQY = 'constexpr int TQX = 32;', 'constexpr int TQY = 16;'
+_T512, _B2 = 'constexpr int THREADS = 512;', 'constexpr int BLOCKS_PER_SM = 2;'
+RCD_VARIANTS = {
+    'tile64x32_t256x2': [(_T512, 'constexpr int THREADS = 256;')],
+    'tile64x32_t384x2': [(_T512, 'constexpr int THREADS = 384;')],
+    'tile64x64_t512x1': [(_TQY, 'constexpr int TQY = 32;'), (_B2, 'constexpr int BLOCKS_PER_SM = 1;')],
+    'tile64x40_t256x2': [(_TQY, 'constexpr int TQY = 20;'), (_T512, 'constexpr int THREADS = 256;')],
+    'tile128x32_t512x1': [(_TQX, 'constexpr int TQX = 64;'), (_B2, 'constexpr int BLOCKS_PER_SM = 1;')],
+    'tile32x32_t256x3': [(_TQX, 'constexpr int TQX = 16;'), (_T512, 'constexpr int THREADS = 256;'),
+                         (_B2, 'constexpr int BLOCKS_PER_SM = 3;')],
+}
+
+
+def variant_sources(src_name, variants, prefix):
+    """Write each variant of csrc/src_name into the build directory;
+    returns {prefix + name: path}."""
+    from tpu_darktable_torch.kernels import _build
+
+    src = (_build.CSRC / src_name).read_text()
+    var_dir = _build.build_dir() / 'pairs'
+    var_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f'variant {name}: {old!r} is not in the source')
+            text = text.replace(old, new)
+        path = var_dir / f'{prefix}{name}.cu'
+        path.write_text(text)
+        jobs[prefix + name] = path
+    return jobs
 
 
 def log(*a):
@@ -121,6 +162,51 @@ def turns(old, new):
 
 def summary(ts):
     return dict(median=statistics.median(ts), min=min(ts), max=max(ts))
+
+
+def rcd_pairs(libs, dev, result):
+    """libs: {'parent', 'new', variants...} -> CDLL of an RCD source."""
+    from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
+
+    h, w = 3000, 4096
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.rand((h, w), generator=gen, device=dev) * 0.9
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {name: torch.empty((3, h, w), device=dev) for name in libs}
+
+    def call(name):
+        fn = libs[name].rcd_interior_launch
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def run():
+            status = fn(x.data_ptr(), outs[name].data_ptr(), h, w, 0, 0, 1, 1, stream)
+            if status != 0:
+                raise RuntimeError(f'rcd_interior {name}: cudaError_t {status}')
+        return run
+
+    runs = {name: call(name) for name in libs}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    r = RING
+    plain = rcd_interior_plain(x, r_par=(0, 0), b_par=(1, 1))[:, r:-r, r:-r]
+    row = {'shape': [h, w]}
+    for name in libs:
+        row[f'{name}_err_vs_plain'] = (outs[name][:, r:-r, r:-r] - plain).abs().max().item()
+    del plain
+    for name in libs:
+        if name == 'parent':
+            continue
+        t_old, t_new, won = turns(runs['parent'], runs[name])
+        row[name] = dict(parent=summary(t_old), new=summary(t_new), won_every_pair=won)
+        log(f'rcd_interior {name}: parent {summary(t_old)} new {summary(t_new)} '
+            f'won every pair: {won}')
+    log('rcd_interior: ' + json.dumps({a: b for a, b in row.items() if not isinstance(b, dict)}))
+    result['rcd_interior'] = row
+    bad = {name: row[f'{name}_err_vs_plain'] for name in libs if row[f'{name}_err_vs_plain'] != 0}
+    if bad:
+        raise AssertionError(f'rcd_interior sources off their plain version: {bad}')
 
 
 def old_tables(k, wf, wi, dev):
@@ -239,24 +325,30 @@ def main():
     from tpu_darktable_torch.kernels import _build
 
     parent = Path(args.parent)
-    src = (_build.CSRC / 'wiener_core.cu').read_text()
-    var_dir = _build.build_dir() / 'pairs'
-    var_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {'parent': parent / 'wiener_core.cu', 'new': _build.CSRC / 'wiener_core.cu',
-            'band': parent / 'bilateral_band.cu', 'fused': _build.CSRC / 'bilateral_fused.cu'}
-    for name, subs in WIENER_VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f'variant {name}: {old!r} is not in the source')
-            text = text.replace(old, new)
-        (var_dir / f'{name}.cu').write_text(text)
-        jobs[name] = var_dir / f'{name}.cu'
+    csrc = _build.CSRC
+    jobs = {}
+    if (parent / 'rcd_interior.cu').exists():
+        jobs.update({'rcd_parent': parent / 'rcd_interior.cu',
+                     'rcd_new': csrc / 'rcd_interior.cu'})
+        jobs.update(variant_sources('rcd_interior.cu', RCD_VARIANTS, 'rcd_'))
+    if (parent / 'wiener_core.cu').exists():
+        jobs.update({'parent': parent / 'wiener_core.cu', 'new': csrc / 'wiener_core.cu'})
+        jobs.update(variant_sources('wiener_core.cu', WIENER_VARIANTS, ''))
+    if (parent / 'bilateral_band.cu').exists():
+        jobs.update({'band': parent / 'bilateral_band.cu', 'fused': csrc / 'bilateral_fused.cu'})
+    if not jobs:
+        print(f'chip_pairs: {parent} holds no parent source', file=sys.stderr)
+        return 2
     libs = nvcc_build(jobs)
     dev = torch.device('cuda')
     result = {'card': smi, 'rounds': ROUNDS, 'launches_a_timing': ITERS}
-    wiener_pairs({k: v for k, v in libs.items() if k not in ('band', 'fused')}, dev, result)
-    bilateral_pairs(libs, dev, result)
+    if 'rcd_parent' in libs:
+        rcd_pairs({k[4:]: v for k, v in libs.items() if k.startswith('rcd_')}, dev, result)
+    if 'parent' in libs:
+        wiener_pairs({k: v for k, v in libs.items()
+                      if not k.startswith('rcd_') and k not in ('band', 'fused')}, dev, result)
+    if 'band' in libs:
+        bilateral_pairs(libs, dev, result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

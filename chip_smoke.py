@@ -4,9 +4,11 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-     build every kernel of csrc/ (one nvcc each, in parallel).
+     build every kernel of csrc/ (one nvcc each, in parallel) and log each
+     one's registers and spills as ptxas prints them.
   2. each hand kernel against its plain PyTorch version on the card, at the
-     shapes of its path (4096x3000; the general bilateral grid of sigma_s 3,
+     shapes of its path (4096x3000, RCD interior in all four patterns and on
+     a ragged 2998x4002 frame, bit for bit; the general bilateral grid of sigma_s 3,
      (6, 1001, 1366); the Wiener tile core on the K=32, overlap-4 coset
      slabs of the 12 MP log-L plane, (16, 3072, 4160)): max abs error
      against the stated tolerance, kernel / plain time by CUDA events, the
@@ -149,7 +151,8 @@ def phase_card_and_build():
         + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) + ')')
     for name in _build.SOURCES:
         lib = _build._lib_path(name)
-        ptxas = [ln for ln in lib.with_suffix('.log').read_text().splitlines() if 'registers' in ln]
+        ptxas = [ln for ln in lib.with_suffix('.log').read_text().splitlines()
+                 if 'registers' in ln or 'spill' in ln]
         log(f'  {name}: ' + ' | '.join(s.strip() for s in ptxas))
     return smi
 
@@ -180,7 +183,6 @@ def phase_kernels(dev):
     g = rgb[..., 1].contiguous()
     diffs = torch.stack((rgb[..., 0] - g, rgb[..., 2] - g))
     lum = color.rgb_to_lab(torch.clamp(rgb, 0.0, 1.0))[..., 0].contiguous()
-    rp, bp = site_parities(BayerPattern.RGGB)
     _, _, gz = compute_grid_size(W, H, 2.0, 0.2)
     px = H * W
     out = []
@@ -210,14 +212,23 @@ def phase_kernels(dev):
                         bound_by=b_by, library_ms=library_ms))
 
     r = RING
+
+    def rcd_pair(x, pattern):
+        rp_, bp_ = site_parities(pattern)
+        return (lambda: rcd_interior(x, r_par=rp_, b_par=bp_),
+                lambda: rcd_interior_plain(x, r_par=rp_, b_par=bp_))
+
+    ragged = mosaic[1:2999, 3:4005].contiguous()   # 2998x4002: no tile size divides it
     # ~200 float ops a pixel through the 12 steps (tallied from the source);
-    # one read of the mosaic, three planes written.
+    # one read of the mosaic, three planes written.  Bit for bit (tolerance
+    # 0) in every pattern and on the ragged frame.
     record('rcd_interior', 'tpu_darktable_torch/csrc/rcd_interior.cu',
            'tpu_darktable/kernels/rcd_interior.py:226',
-           lambda: rcd_interior(mosaic, r_par=rp, b_par=bp),
-           lambda: rcd_interior_plain(mosaic, r_par=rp, b_par=bp),
-           lambda a, b: (a - b)[:, r:-r, r:-r].abs().max().item(), 1e-5,
-           4 * px + 12 * px, 200 * px)
+           *rcd_pair(mosaic, BayerPattern.RGGB),
+           lambda a, b: (a - b)[:, r:-r, r:-r].abs().max().item(), 0.0,
+           4 * px + 12 * px, 200 * px,
+           also=[rcd_pair(mosaic, BayerPattern[p]) for p in ('BGGR', 'GRBG', 'GBRG')]
+           + [rcd_pair(ragged, BayerPattern.RGGB)])
     # 3 passes x 2 planes x (25 compare-exchanges = 50 min/max + 4) a pixel;
     # two diff planes and g read once, two planes written.
     record('color_smooth_diffs', 'tpu_darktable_torch/csrc/color_smooth.cu',

@@ -64,7 +64,12 @@ static dim3 threadIdx(0,0,0), blockIdx(0,0,0), blockDim(1,1,1), gridDim(1,1,1);
 static float* emu_smem = nullptr;
 typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+// What cudaFuncSetAttribute returns; a test sets it to see a launcher pass it on.
+static int emu_attribute_status = 0;
+extern "C" void emu_set_attribute_status(int status) { emu_attribute_status = status; }
+template <class F> inline int cudaFuncSetAttribute(F, int, int) { return emu_attribute_status; }
 inline int cudaGetLastError() { return 0; }
 
 struct EmuCfg { dim3 grid, block; size_t smem; };
@@ -149,7 +154,8 @@ def emu_lib(tmp_path_factory):
         cpp = out / f'{cu.stem}.cpp'
         cpp.write_text(s)
         so = out / f'lib{cu.stem}.so'
-        subprocess.run(['g++', '-std=c++17', '-O2', '-ffp-contract=off', '-shared', '-fPIC',
+        subprocess.run(['g++', '-std=c++17', '-O2', '-ffp-contract=off', '-fno-strict-aliasing',
+                        '-shared', '-fPIC',
                         '-o', str(so), str(cpp)], check=True, capture_output=True, timeout=300)
         libs[cu.stem] = ctypes.CDLL(str(so))
     return libs
@@ -159,10 +165,15 @@ def _p(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+@pytest.mark.parametrize('h,w', [
+    (28, 60),                # inside one 64x32 tile
+    (76, 102), (70, 140),    # two and three tiles each way, ragged right and bottom
+    (134, 200),              # five by four tiles, ragged
+    (71, 137)])              # odd sizes: the scalar stores
 @pytest.mark.parametrize('pattern', ['RGGB', 'BGGR', 'GRBG', 'GBRG'])
-def test_rcd_interior_source_on_host(emu_lib, rng, pattern):
-    """Two tiles and a ragged edge each way; interior bit-exact."""
-    h, w = 76, 102
+def test_rcd_interior_source_on_host(emu_lib, rng, pattern, h, w):
+    """Every pattern at sizes from under one tile to several, ragged each
+    way: interior (>= RING px from every edge) bit-exact."""
     x = rng.random((h, w)).astype(np.float32)
     out = np.zeros((3, h, w), np.float32)
     rp, bp = site_parities(BayerPattern[pattern])
@@ -172,6 +183,54 @@ def test_rcd_interior_source_on_host(emu_lib, rng, pattern):
     ref = rcd_interior_plain(torch.from_numpy(x), r_par=rp, b_par=bp).numpy()
     r = RING
     np.testing.assert_array_equal(out[:, r:-r, r:-r], ref[:, r:-r, r:-r])
+
+
+def test_rcd_interior_source_refuses_non_bayer_sites(emu_lib):
+    """R and B sharing a row or a column is no Bayer pattern: the launcher
+    returns cudaErrorInvalidValue and launches nothing."""
+    x = np.ones((40, 40), np.float32)
+    out = np.full((3, 40, 40), -1.0, np.float32)
+    fn = emu_lib['rcd_interior'].rcd_interior_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    assert fn(_p(x), _p(out), 40, 40, 0, 0, 0, 1, None) == 1
+    assert fn(_p(x), _p(out), 40, 40, 0, 1, 1, 1, None) == 1
+    assert (out == -1.0).all()
+
+
+# Each launcher that asks for dynamic shared memory: argtypes, and arguments
+# on a small valid input (x (1, 20, 24), out (3, 20, 24), thr (1,)) that take
+# the path with the cudaFuncSetAttribute call.
+_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ATTRIBUTE_LAUNCHES = {
+    'rcd_interior': ([_V] * 2 + [_I] * 6 + [_V], lambda x, o, t: (x, o, 20, 24, 0, 0, 1, 1, None)),
+    'color_smooth': ([_V] * 3 + [_I] * 3 + [_V], lambda x, o, t: (o, x, o, 20, 24, 1, None)),
+    'wavelet': ([_V] * 5 + [_I] * 4 + [_V], lambda x, o, t: (x, t, o, o, o, 1, 20, 24, 2, None)),
+    'nlm': ([_V] * 2 + [_I] * 5 + [_F, _V], lambda x, o, t: (x, o, 1, 20, 24, 2, 1, 10.0, None)),
+    'bilateral_fused': ([_V] * 2 + [_I] * 4 + [_F, _I, _V],
+                        lambda x, o, t: (x, o, 20, 24, 1, 6, 0.2, 0, None)),
+    'wiener_core': ([_V] * 4 + [_I] * 5 + [_V], lambda x, o, t: (x, o, t, o, 16, 1, 1, 1, 1, None)),
+}
+
+
+@pytest.mark.parametrize('lib', sorted(ATTRIBUTE_LAUNCHES))
+def test_launcher_returns_attribute_status(emu_lib, rng, lib):
+    """Every launcher that asks for dynamic shared memory returns the status
+    of cudaFuncSetAttribute when it is not 0 (a refused attribute means a
+    launch that never runs), and launches as before when it is 0."""
+    assert set(ATTRIBUTE_LAUNCHES) == {cu.stem for cu in CSRC.glob('*.cu')
+                                       if 'cudaFuncSetAttribute' in cu.read_text()}
+    x = rng.random((1, 20, 24)).astype(np.float32)
+    out = np.zeros((3, 20, 24), np.float32)
+    thr = np.full(1, 0.1, np.float32)
+    argtypes, args = ATTRIBUTE_LAUNCHES[lib]
+    fn = getattr(emu_lib[lib], f'{lib}_launch')
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    emu_lib[lib].emu_set_attribute_status(7)
+    try:
+        assert fn(*args(_p(x), _p(out), _p(thr))) == 7
+    finally:
+        emu_lib[lib].emu_set_attribute_status(0)
+    assert fn(*args(_p(x), _p(out), _p(thr))) == 0
 
 
 @pytest.mark.parametrize('n_passes', [1, 3, 5])

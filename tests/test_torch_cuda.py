@@ -19,9 +19,11 @@ from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused, bilateral_fused_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz, grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core, nlm_core_plain
+from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core, wavelet_core_plain
 from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core, wiener_tile_core_plain
 from tpu_darktable_torch.ops import bilateral, nlm, wiener
+from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
 
 
 @pytest.fixture()
@@ -43,6 +45,19 @@ def test_grid_blur_on_card(dev, z_mode):
     grid = _rand(1, (9, 101, 150), dev)
     err = (grid_blur_xyz(grid, z_mode=z_mode) - grid_blur_xyz_plain(grid, z_mode=z_mode))
     assert err.abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(28, 60), (134, 200), (71, 137), (2998, 4002)])
+@pytest.mark.parametrize('pattern', ['RGGB', 'BGGR', 'GRBG', 'GBRG'])
+def test_rcd_interior_on_card(dev, pattern, h, w):
+    """The quad cascade against its plain version, bit for bit >= RING px
+    from every edge: one tile, ragged tiles, odd sizes, a ragged 12 MP frame."""
+    x = _rand(3, (h, w), dev)
+    rp, bp = site_parities(BayerPattern[pattern])
+    r = RING
+    k = rcd_interior(x, r_par=rp, b_par=bp)[:, r:-r, r:-r]
+    assert torch.equal(k, rcd_interior_plain(x, r_par=rp, b_par=bp)[:, r:-r, r:-r])
 
 
 @pytest.mark.cuda

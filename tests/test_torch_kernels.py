@@ -157,17 +157,19 @@ def test_cpu_runs_plain_versions_and_counts_nothing(rng):
 
 @pytest.mark.cuda
 def test_kernels_on_card_match_plain(rng):
-    """On the card: each CUDA kernel against its plain version (color
-    smoothing bit-exact, RCD interior and bilateral 1e-5)."""
+    """On the card: each CUDA kernel against its plain version (RCD interior
+    in the four patterns and color smoothing bit-exact, bilateral 1e-5)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device; chip_smoke.py runs these on the card')
     dev = torch.device('cuda')
     h, w = 256, 320
     x = torch.from_numpy(rng.random((h, w)).astype(np.float32)).to(dev)
-    k = rcd_interior(x, r_par=(0, 0), b_par=(1, 1))
-    p = rcd_interior_plain(x, r_par=(0, 0), b_par=(1, 1))
     r = RING
-    assert (k - p)[:, r:-r, r:-r].abs().max().item() <= 1e-5
+    for pattern in TPattern:
+        rp, bp = site_parities(pattern)
+        k = rcd_interior(x, r_par=rp, b_par=bp)
+        p = rcd_interior_plain(x, r_par=rp, b_par=bp)
+        assert torch.equal(k[:, r:-r, r:-r], p[:, r:-r, r:-r]), pattern
     d = torch.stack([x - 0.5, 0.5 - x])
     assert torch.equal(color_smooth_diffs(d, x, n_passes=3),
                        color_smooth_diffs_plain(d, x, n_passes=3))

@@ -101,7 +101,9 @@ extern "C" int color_smooth_launch(const float* diffs, const float* g, float* ou
                                    int h, int w, int n_passes, void* stream) {
   const int s = TILE + 2 * n_passes;
   const int smem = 3 * s * s * (int)sizeof(float);
-  cudaFuncSetAttribute(color_smooth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int status = (int)cudaFuncSetAttribute(
+      color_smooth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (status != 0) return status;
   const dim3 grid((w + TILE - 1) / TILE, (h + TILE - 1) / TILE, 2);
   color_smooth_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       diffs, g, out, h, w, n_passes);

@@ -6,9 +6,11 @@ Replaces the TPU kernel tpu_darktable/kernels/rcd_interior.py:rcd_interior
 On the H100 the cascade is bound by its arithmetic, not by HBM: it reads the
 mosaic once and writes three planes (16 bytes a pixel) but runs ~200 float
 operations a pixel (unfused, --fmad=false) through 8 dependent stencil stages.  The kernel keeps all
-stages of one 32x32 output tile in shared memory (tile + 12 px halo, six
-reused planes), so no intermediate plane touches HBM; the price is the 3x
-redundant halo compute of this simple tiling.
+stages of one 64x32 output tile in shared memory (tile + 12 px halo; two
+full planes and five of one value per column pair), so no intermediate
+plane touches HBM.  A thread owns a 2x2 Bayer quad, whose sites are fixed
+at compile time, so no warp branches on a site; four stages cost 1.5x the
+tile's work on average for the halo.
 """
 
 from __future__ import annotations
