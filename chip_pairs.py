@@ -8,13 +8,16 @@ below runs only where DIR holds its parent source:
     git show 862cd2f:tpu_darktable_torch/csrc/rcd_interior.cu > DIR/rcd_interior.cu
     git show a3c1ad5:tpu_darktable_torch/csrc/wiener_core.cu > DIR/wiener_core.cu
     git show a3c1ad5:tpu_darktable_torch/csrc/bilateral_band.cu > DIR/bilateral_band.cu
+    git show deaec77:tpu_darktable_torch/csrc/color_smooth.cu > DIR/color_smooth.cu
+    git show deaec77:tpu_darktable_torch/csrc/grid_blur.cu > DIR/grid_blur.cu
 
 (862cd2f: the last commit with the one-pixel-a-thread RCD cascade; a3c1ad5:
 the last with the five-launch bilateral chain and the paired-DFT Wiener tile
-core).  They are built with the port's nvcc flags and run in turns with the
-sources of the tree (earlier, new, new, earlier; three rounds of 20
-launches, CUDA events), so that the card's clock and power state are shared
-by both:
+core; deaec77: the last with the sorting-network colour smoothing and the
+shared-ring grid blur).  They are built with the port's nvcc flags and run
+in turns with the sources of the tree (earlier, new, new, earlier; three
+rounds of 20 launches, CUDA events), so that the card's clock and power
+state are shared by both:
 
   - rcd_interior at 4096x3000 RGGB: the new kernel and a few variants of
     it (tile shape, threads a block, blocks an SM; each built from the
@@ -29,6 +32,13 @@ by both:
   - the bilateral detail term at 4096x3000 for sigma_s 1, 2, 8 and for
     gz = 51: the five-launch source against the one-launch source that now
     serves both wrappers, and max |diff| between them.
+  - color_smooth_diffs at 4096x3000, 3 passes, and grid_blur_xyz on the
+    (6, 1001, 1366) grid of sigma_s 3 in both z modes: the tree's source and
+    a few variants of it (tile shape, outputs a thread, threads a block)
+    against the earlier source, each with its max |diff| to the plain
+    version (colour smoothing must be 0, the grid blur <= 1e-6); and the
+    tree's colour smoothing at 1 to 5 passes, which splits its time into
+    what a pass costs and what staging and the store cost.
 
 Prints the card's name and power limit first, a JSON object last.
 """
@@ -82,6 +92,26 @@ RCD_VARIANTS = {
     'tile128x32_t512x1': [(_TQX, 'constexpr int TQX = 64;'), (_B2, 'constexpr int BLOCKS_PER_SM = 1;')],
     'tile32x32_t256x3': [(_TQX, 'constexpr int TQX = 16;'), (_T512, 'constexpr int THREADS = 256;'),
                          (_B2, 'constexpr int BLOCKS_PER_SM = 3;')],
+}
+
+# name -> substitutions on csrc/color_smooth.cu (124x32 px tiles at N = 3,
+# 256 threads a block, runs of 4 outputs a thread)
+_TH, _R4, _T256 = 'constexpr int TH = 32;', 'constexpr int R = 4;', 'constexpr int THREADS = 256;'
+CS_VARIANTS = {
+    'r8': [(_R4, 'constexpr int R = 8;')],
+    'th16': [(_TH, 'constexpr int TH = 16;')],
+    'r8_t512': [(_R4, 'constexpr int R = 8;'), (_T256, 'constexpr int THREADS = 512;')],
+    't128': [(_T256, 'constexpr int THREADS = 128;')],
+}
+
+# name -> substitutions on csrc/grid_blur.cu (64x32 cell tiles: 16 x 8
+# threads, 4 x 4 cells a thread, 4 blocks an SM)
+_LY, _TXG, _GB4 = 'constexpr int LY = 4;', 'constexpr int TXG = 16;', 'constexpr int BLOCKS_PER_SM = 4;'
+GB_VARIANTS = {
+    'ly2': [(_LY, 'constexpr int LY = 2;'), (_GB4, 'constexpr int BLOCKS_PER_SM = 8;')],
+    'ly3': [(_LY, 'constexpr int LY = 3;'), (_GB4, 'constexpr int BLOCKS_PER_SM = 5;')],
+    'tile32x32': [(_TXG, 'constexpr int TXG = 8;'), (_GB4, 'constexpr int BLOCKS_PER_SM = 8;')],
+    'bpsm3': [(_GB4, 'constexpr int BLOCKS_PER_SM = 3;')],
 }
 
 
@@ -164,6 +194,30 @@ def summary(ts):
     return dict(median=statistics.median(ts), min=min(ts), max=max(ts))
 
 
+def kernel_pairs(key, libs, make_run, err_of, tol, result):
+    """libs: {'parent', 'new', variants...}; make_run(name, lib) -> a launch;
+    err_of(name) -> max |diff| of that source's last output to plain.
+    Every source but the parent in turns against the parent."""
+    runs = {name: make_run(name, lib) for name, lib in libs.items()}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    row = {f'{name}_err_vs_plain': err_of(name) for name in libs}
+    row['tolerance'] = tol
+    for name in libs:
+        if name == 'parent':
+            continue
+        t_old, t_new, won = turns(runs['parent'], runs[name])
+        row[name] = dict(parent=summary(t_old), new=summary(t_new), won_every_pair=won)
+        log(f'{key} {name}: parent {summary(t_old)} new {summary(t_new)} won every pair: {won}')
+    log(f'{key}: ' + json.dumps({a: b for a, b in row.items() if not isinstance(b, dict)}))
+    result[key] = row
+    bad = {name: row[f'{name}_err_vs_plain'] for name in libs
+           if not row[f'{name}_err_vs_plain'] <= tol}
+    if bad:
+        raise AssertionError(f'{key} sources off their plain version: {bad}')
+
+
 def rcd_pairs(libs, dev, result):
     """libs: {'parent', 'new', variants...} -> CDLL of an RCD source."""
     from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
@@ -174,8 +228,8 @@ def rcd_pairs(libs, dev, result):
     stream = torch.cuda.current_stream().cuda_stream
     outs = {name: torch.empty((3, h, w), device=dev) for name in libs}
 
-    def call(name):
-        fn = libs[name].rcd_interior_launch
+    def make_run(name, lib):
+        fn = lib.rcd_interior_launch
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -185,28 +239,10 @@ def rcd_pairs(libs, dev, result):
                 raise RuntimeError(f'rcd_interior {name}: cudaError_t {status}')
         return run
 
-    runs = {name: call(name) for name in libs}
-    for run in runs.values():
-        run()
-    torch.cuda.synchronize()
     r = RING
     plain = rcd_interior_plain(x, r_par=(0, 0), b_par=(1, 1))[:, r:-r, r:-r]
-    row = {'shape': [h, w]}
-    for name in libs:
-        row[f'{name}_err_vs_plain'] = (outs[name][:, r:-r, r:-r] - plain).abs().max().item()
-    del plain
-    for name in libs:
-        if name == 'parent':
-            continue
-        t_old, t_new, won = turns(runs['parent'], runs[name])
-        row[name] = dict(parent=summary(t_old), new=summary(t_new), won_every_pair=won)
-        log(f'rcd_interior {name}: parent {summary(t_old)} new {summary(t_new)} '
-            f'won every pair: {won}')
-    log('rcd_interior: ' + json.dumps({a: b for a, b in row.items() if not isinstance(b, dict)}))
-    result['rcd_interior'] = row
-    bad = {name: row[f'{name}_err_vs_plain'] for name in libs if row[f'{name}_err_vs_plain'] != 0}
-    if bad:
-        raise AssertionError(f'rcd_interior sources off their plain version: {bad}')
+    kernel_pairs('rcd_interior', libs, make_run,
+                 lambda name: (outs[name][:, r:-r, r:-r] - plain).abs().max().item(), 0.0, result)
 
 
 def old_tables(k, wf, wi, dev):
@@ -311,6 +347,70 @@ def bilateral_pairs(libs, dev, result):
         del ga, gb
 
 
+def color_smooth_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
+
+    h, w, n = 3000, 4096, 3
+    gen = torch.Generator(device=dev).manual_seed(14)
+    d = torch.rand((2, h, w), generator=gen, device=dev) - 0.5
+    g = torch.rand((h, w), generator=gen, device=dev) - 0.1
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {name: torch.empty_like(d) for name in libs}
+
+    def make_run(name, lib):
+        fn = lib.color_smooth_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def run():
+            status = fn(d.data_ptr(), g.data_ptr(), outs[name].data_ptr(), h, w, n, stream)
+            if status != 0:
+                raise RuntimeError(f'color_smooth {name}: cudaError_t {status}')
+        return run
+
+    plain = color_smooth_diffs_plain(d, g, n_passes=n)
+    kernel_pairs('color_smooth_diffs', libs, make_run,
+                 lambda name: (outs[name] - plain).abs().max().item(), 0.0, result)
+    # What a pass costs against what staging and the store cost: the tree's
+    # source at 1 to 5 passes.
+    fn = libs['new'].color_smooth_launch
+
+    def passes(k):
+        if fn(d.data_ptr(), g.data_ptr(), outs['new'].data_ptr(), h, w, k, stream) != 0:
+            raise RuntimeError(f'color_smooth new at {k} passes: launch failed')
+
+    by_n = {k: event_ms(lambda k=k: passes(k)) for k in range(1, 6)}
+    log('color_smooth_diffs ms by passes: ' + json.dumps(by_n))
+    result['color_smooth_diffs']['ms_by_passes'] = by_n
+
+
+def grid_blur_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
+
+    shape = (6, 1001, 1366)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    grid = torch.rand(shape, generator=gen, device=dev) - 0.3
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {name: torch.empty_like(grid) for name in libs}
+    for z_mode in ('derivative', 'gaussian'):
+        z_gauss = int(z_mode == 'gaussian')
+
+        def make_run(name, lib):
+            fn = lib.grid_blur_launch
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+            def run():
+                status = fn(grid.data_ptr(), outs[name].data_ptr(), *shape, z_gauss, stream)
+                if status != 0:
+                    raise RuntimeError(f'grid_blur {name}: cudaError_t {status}')
+            return run
+
+        plain = grid_blur_xyz_plain(grid, z_mode=z_mode)
+        kernel_pairs(f'grid_blur_xyz_{z_mode}', libs, make_run,
+                     lambda name: (outs[name] - plain).abs().max().item(), 1e-6, result)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--parent', required=True, help='directory with the earlier sources')
@@ -336,6 +436,12 @@ def main():
         jobs.update(variant_sources('wiener_core.cu', WIENER_VARIANTS, ''))
     if (parent / 'bilateral_band.cu').exists():
         jobs.update({'band': parent / 'bilateral_band.cu', 'fused': csrc / 'bilateral_fused.cu'})
+    if (parent / 'color_smooth.cu').exists():
+        jobs.update({'cs_parent': parent / 'color_smooth.cu', 'cs_new': csrc / 'color_smooth.cu'})
+        jobs.update(variant_sources('color_smooth.cu', CS_VARIANTS, 'cs_'))
+    if (parent / 'grid_blur.cu').exists():
+        jobs.update({'gb_parent': parent / 'grid_blur.cu', 'gb_new': csrc / 'grid_blur.cu'})
+        jobs.update(variant_sources('grid_blur.cu', GB_VARIANTS, 'gb_'))
     if not jobs:
         print(f'chip_pairs: {parent} holds no parent source', file=sys.stderr)
         return 2
@@ -346,9 +452,14 @@ def main():
         rcd_pairs({k[4:]: v for k, v in libs.items() if k.startswith('rcd_')}, dev, result)
     if 'parent' in libs:
         wiener_pairs({k: v for k, v in libs.items()
-                      if not k.startswith('rcd_') and k not in ('band', 'fused')}, dev, result)
+                      if not k.startswith(('rcd_', 'cs_', 'gb_')) and k not in ('band', 'fused')},
+                     dev, result)
     if 'band' in libs:
         bilateral_pairs(libs, dev, result)
+    if 'cs_parent' in libs:
+        color_smooth_pairs({k[3:]: v for k, v in libs.items() if k.startswith('cs_')}, dev, result)
+    if 'gb_parent' in libs:
+        grid_blur_pairs({k[3:]: v for k, v in libs.items() if k.startswith('gb_')}, dev, result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -229,14 +229,21 @@ def phase_kernels(dev):
            4 * px + 12 * px, 200 * px,
            also=[rcd_pair(mosaic, BayerPattern[p]) for p in ('BGGR', 'GRBG', 'GBRG')]
            + [rcd_pair(ragged, BayerPattern.RGGB)])
-    # 3 passes x 2 planes x (25 compare-exchanges = 50 min/max + 4) a pixel;
-    # two diff planes and g read once, two planes written.
+    # What the function needs, not what a sorting network does: a 3x3
+    # median is med3(max of the column minima, med3 of the column medians,
+    # min of the column maxima), and a pixel's right-hand two columns are its
+    # right neighbour's first two, so a pixel sorts one new column (6
+    # min/max) and selects with 2 + 2 + 4 + 4, plus 3 for the recurrence:
+    # 21 operations a pixel, plane and pass.  Two diff planes and g read
+    # once, two planes written: bytes bind it.
+    log(f'color_smooth_diffs: the 25-compare-exchange network would count 3 x 2 x 54 = 324 '
+        f'operations a pixel ({bound(0, 324 * px)[0]:.4f} ms); the bound counts 3 x 2 x 21 = 126')
     record('color_smooth_diffs', 'tpu_darktable_torch/csrc/color_smooth.cu',
            'tpu_darktable/kernels/color_smooth.py:91',
            lambda: color_smooth_diffs(diffs, g, n_passes=3),
            lambda: color_smooth_diffs_plain(diffs, g, n_passes=3),
            lambda a, b: (a - b).abs().max().item(), 0.0,
-           12 * px + 8 * px, 3 * 2 * 54 * px)
+           12 * px + 8 * px, 3 * 2 * 21 * px)
     # the algorithm: ~27 ops a pixel to splat, 3 x 5 taps x 2 ops a grid
     # cell (1.5 cells a pixel at s=2, gz=6), ~22 to slice; lum read once,
     # l_diff written once.  One source serves this wrapper and

@@ -66,6 +66,18 @@ typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0, cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+// cp.async (cuda_pipeline_primitives.h) as a plain copy when called, the last zfill bytes
+// zero; the source's own __syncthreads() after __pipeline_wait_prior is the
+// barrier, so a buffer overwritten before every thread is done reading it shows.
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size, size_t zfill = 0) {
+  std::memcpy(dst, src, size - zfill);
+  std::memset(static_cast<char*>(dst) + (size - zfill), 0, zfill);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 // What cudaFuncSetAttribute returns; a test sets it to see a launcher pass it on.
 static int emu_attribute_status = 0;
 extern "C" void emu_set_attribute_status(int status) { emu_attribute_status = status; }
@@ -149,6 +161,7 @@ def emu_lib(tmp_path_factory):
     libs = {}
     for cu in sorted(CSRC.glob('*.cu')):
         s = cu.read_text().replace('#include <cuda_runtime.h>', '#include "cuda_emu.h"')
+        s = s.replace('#include <cuda_pipeline_primitives.h>', '')
         s = s.replace('extern __shared__ float smem[];', 'float* smem = emu_smem;')
         s = re.sub(r'(\w+(?:<[^<>();]*>)?)\s*<<<(.*?)>>>\((.*?)\);', _launch, s, flags=re.S)
         cpp = out / f'{cu.stem}.cpp'
@@ -233,12 +246,27 @@ def test_launcher_returns_attribute_status(emu_lib, rng, lib):
     assert fn(*args(_p(x), _p(out), _p(thr))) == 0
 
 
-@pytest.mark.parametrize('n_passes', [1, 3, 5])
-def test_color_smooth_source_on_host(emu_lib, rng, n_passes):
-    h, w = 70, 45
-    d = (rng.random((2, h, w)) - 0.5).astype(np.float32)
-    g = (rng.random((h, w)) - 0.1).astype(np.float32)
-    out = np.zeros_like(d)
+@pytest.mark.parametrize('h,w,n_passes,ties', [
+    (28, 60, 3, False),                    # under one tile (124 x 32 at N = 3)
+    (32, 124, 3, False),                   # exactly one tile
+    (70, 300, 3, False), (97, 260, 3, False),   # ragged each way; an inside block at 97 x 260
+    (70, 45, 1, False), (97, 260, 1, False), (97, 260, 2, False),
+    (70, 45, 3, False), (70, 45, 5, False), (97, 260, 5, False),
+    (70, 140, 32, False), (20, 30, 32, False),  # N = 32: a 66-px tile, the halo wider than the image
+    (1, 50, 3, False), (40, 1, 3, False), (1, 1, 2, False),   # one pixel high, wide, both
+    (97, 260, 3, True), (45, 70, 5, True), (70, 140, 32, True)])
+def test_color_smooth_source_on_host(emu_lib, rng, h, w, n_passes, ties):
+    """Tiles and halos at every pass count the wrapper takes (1..32), ragged
+    tiles, inside blocks, 1-px images and tie-heavy input (8 levels, a third
+    of them exactly 0): bit-exact (-0.0 == +0.0)."""
+    if ties:
+        d = (rng.integers(-4, 4, (2, h, w)) / 8.0).astype(np.float32)
+        d[rng.random((2, h, w)) < 1 / 3] = 0.0
+        g = (rng.integers(-1, 7, (h, w)) / 8.0).astype(np.float32)
+    else:
+        d = (rng.random((2, h, w)) - 0.5).astype(np.float32)
+        g = (rng.random((h, w)) - 0.1).astype(np.float32)
+    out = np.full_like(d, np.nan)
     fn = emu_lib['color_smooth'].color_smooth_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     assert fn(_p(d), _p(g), _p(out), h, w, n_passes, None) == 0
@@ -246,12 +274,20 @@ def test_color_smooth_source_on_host(emu_lib, rng, n_passes):
     np.testing.assert_array_equal(out, ref.numpy())
 
 
-@pytest.mark.parametrize('shape,z_mode', [((6, 70, 45), 'derivative'), ((6, 70, 45), 'gaussian'),
-                                          ((3, 33, 97), 'derivative'), ((9, 40, 64), 'gaussian')])
+@pytest.mark.parametrize('shape,z_mode', [
+    ((6, 70, 45), 'derivative'), ((6, 70, 45), 'gaussian'),
+    ((3, 33, 97), 'derivative'), ((9, 40, 64), 'gaussian'),
+    ((1, 40, 70), 'derivative'), ((1, 40, 70), 'gaussian'),    # gz = 1: every z tap but the centre cut
+    ((2, 33, 97), 'derivative'), ((2, 33, 97), 'gaussian'),
+    ((5, 70, 140), 'gaussian'), ((5, 70, 140), 'derivative'),  # ragged tiles each way
+    ((51, 40, 64), 'derivative'), ((51, 20, 30), 'gaussian'),  # gz = 51 (sigma_r 0.02)
+    ((6, 10, 20), 'derivative'), ((6, 1, 7), 'gaussian'),      # smaller than one tile
+    ((6, 64, 128), 'derivative')])                             # whole tiles
 def test_grid_blur_source_on_host(emu_lib, rng, shape, z_mode):
-    """Ragged tiles each way, gz below and above the 5-slab ring: bit-exact."""
+    """gz from 1 to 51, ragged tiles each way, grids smaller than one tile,
+    both z modes: bit-exact."""
     grid = (rng.random(shape) - 0.3).astype(np.float32)
-    out = np.zeros_like(grid)
+    out = np.full_like(grid, np.nan)
     fn = emu_lib['grid_blur'].grid_blur_launch
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     assert fn(_p(grid), _p(out), *shape, int(z_mode == 'gaussian'), None) == 0

@@ -17,6 +17,7 @@ from tpu_darktable_torch import kernels
 from tpu_darktable_torch.denoise import Wiener
 from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral_band_plain
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused, bilateral_fused_plain
+from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz, grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core, nlm_core_plain
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
@@ -39,12 +40,27 @@ def _rand(seed, shape, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(9, 101, 150), (6, 1001, 1366), (2, 33, 97), (51, 40, 64)])
 @pytest.mark.parametrize('z_mode', ['derivative', 'gaussian'])
-def test_grid_blur_on_card(dev, z_mode):
-    """Against the plain version: 1e-6 (same tap order, --fmad=false)."""
-    grid = _rand(1, (9, 101, 150), dev)
+def test_grid_blur_on_card(dev, z_mode, shape):
+    """Against the plain version: 1e-6 (same tap order, --fmad=false); the
+    sigma_s 3 grid of a 12 MP frame, gz = 2 and gz = 51, ragged tiles."""
+    grid = _rand(1, shape, dev)
     err = (grid_blur_xyz(grid, z_mode=z_mode) - grid_blur_xyz_plain(grid, z_mode=z_mode))
     assert err.abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(28, 60), (134, 200), (71, 137), (3000, 4096)])
+@pytest.mark.parametrize('n_passes', [1, 3, 5])
+def test_color_smooth_on_card(dev, h, w, n_passes):
+    """The selection median against the plain version's sorting network:
+    equal (torch.equal counts -0.0 and +0.0 as equal) from one tile to a
+    12 MP frame."""
+    d = _rand(11, (2, h, w), dev) - 0.5
+    g = _rand(12, (h, w), dev) - 0.1
+    assert torch.equal(color_smooth_diffs(d, g, n_passes=n_passes),
+                       color_smooth_diffs_plain(d, g, n_passes=n_passes))
 
 
 @pytest.mark.cuda

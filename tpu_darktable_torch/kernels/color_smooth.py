@@ -5,12 +5,13 @@ Replaces the TPU kernel tpu_darktable/kernels/color_smooth.py:color_smooth_diffs
 (N sequential 3x3 median passes over the two (C - G) difference planes,
 zero fill outside the image renewed every pass).
 
-On the H100 the cascade is bound by its compare-exchanges: 3 passes x 2
-planes x 54 min/max/add a pixel (324 ops) outweigh its 20 bytes a pixel
-(one read of the two diff planes and g, one write of the two planes).  The kernel runs all N passes
-of a 32x32 tile (+ N px halo) in shared memory, so the N-1 intermediate
-passes never reach HBM.  It only compares and adds like the plain version,
-so the two agree bit for bit.
+On the H100 the cascade is bound by bytes: one read of the two diff planes
+and g and one write of the two planes (20 bytes a pixel) outweigh the ~21
+operations a pixel, plane and pass of a median taken as a selection over
+sorted columns.  The kernel runs all N passes of a tile (+ N px halo) in
+shared memory, both planes in one block, so the N-1 intermediate passes
+never reach HBM and g is read once.  It only compares and adds like the
+plain version, so the two agree bit for bit.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ Replaces the TPU kernel tpu_darktable/kernels/grid_blur.py:grid_blur_xyz:
 gaussian) of a (gz, gy, gx) grid, zero outside the grid on every axis.
 
 On the H100 the blur is bound by bytes: one read and one write of the
-grid (8 bytes a cell) against ~30 float ops a cell.  The kernel walks z
-over an x/y tile with a 2-cell halo in shared memory, so the grid crosses
-HBM once each way instead of three times; it takes any grid size.
+grid (8 bytes a cell) against ~25 float ops a cell.  The kernel walks z
+over an x/y tile, staging each slab with its 2-cell halo in shared memory
+while the previous one is blurred and keeping the z sums in registers, so
+the grid crosses HBM once each way instead of three times; it takes any
+grid size.
 """
 
 from __future__ import annotations
