@@ -59,7 +59,29 @@ Phases (any failure raises and the script exits non-zero):
      each of FULL's four kernels; then the PPG and
      bilinear debayers and the linear and filmic tonemaps through the
      piecewise chain, card vs CPU at 1024x768 (1 count).
-Then one JSON line with the kernels, and the result JSON as the last line.
+ 10. JPEG and streaming (BASELINE config 5): the native host scan must have
+     built.  On one FULL frame of config 5's scene at 4096x3000: the DCT
+     stage on the card equals the same stage on the CPU coefficient for
+     coefficient at 4:2:2, 4:4:4 and gray; at 4:2:2, quality 90 and the auto
+     restart interval the device entropy (no overflow at its default
+     capacity), the native host scan, encode_jpeg_async and the CPU encode
+     give the same bytes; progressive card == CPU.  Times: the DCT stage by
+     CUDA events; the device entropy (dispatch to result), the host native
+     scan, both whole encodes and progressive by the host clock; bytes a
+     frame; the peak device memory of one device-entropy encode; and no call
+     in process_batch (of a batch on the card or on the host) or in
+     encode_jpeg_async may make the host wait for the card (CUDA sync
+     debugging).  Then config 5 (benchmarks/baseline_configs.py:158-215):
+     StreamingExecutor(batch 2, quality 90, keep_images=False), a warm-up
+     of 2 frames and 32 timed, once with device JPEG and once with 2 host
+     workers, the EMA reset between: no errors, every result FF D8, equal
+     bytes frame for frame, 34 launches of each of FULL's four kernels a
+     run; s/frame, frames/s, MB/frame, and FULL's process_batch ms/frame
+     alone in the same call.  Last, the card's busy time and idle share
+     (torch.profiler) of the DCT stage, the device entropy, one FULL batch
+     of 2 and 2 streamed frames in each mode.
+Then one JSON line with the JPEG numbers, one with the kernels, the card's
+name and power limit, and the result JSON as the last line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -886,6 +908,211 @@ def phase_piecewise(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+def sync_points(fn):
+    """Run fn() with CUDA sync debugging on: for every call in it that made
+    the host wait for the card, the line that made it and the innermost line
+    of the port that led there."""
+    import traceback
+    import warnings
+
+    found = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if 'called a synchronizing CUDA operation' not in str(message):
+            return   # e.g. torch's notice that this debug mode is a prototype
+        port = [f for f in traceback.extract_stack()[:-1] if 'tpu_darktable_torch' in f.filename]
+        where = f' (from {Path(port[-1].filename).name}:{port[-1].lineno})' if port else ''
+        found.append(f'{Path(filename).name}:{lineno}{where}')
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return found
+
+
+def config5_frame(seed=0):
+    """Packed12 bytes of BASELINE config 5's scene (benchmarks/baseline_configs.py
+    :186-198): three sinusoids plus noise of sigma 0.01, mosaicked and
+    packed by the port."""
+    import tpu_darktable_torch as tt
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    scene = np.stack([0.35 + 0.45 * np.sin(xx / 331) * np.cos(yy / 237),
+                      0.40 + 0.40 * np.cos(xx / 181 + yy / 419),
+                      0.45 + 0.35 * np.sin((xx + 2 * yy) / 293)], axis=-1)
+    scene = np.clip(scene + rng.normal(0, 0.01, scene.shape), 0.0, 1.0).astype(np.float32)
+    mosaic = tt.rgb_to_bayer(torch.from_numpy(scene))[..., 0]
+    return tt.encode(mosaic.reshape(-1), tt.PackedFormat.Packed12).numpy()
+
+
+def wall_ms(fn, n):
+    """Median host ms of fn() over n calls, each starting on an idle card and
+    ending in whatever fn waits for."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def device_busy(fn):
+    """fn() once under torch.profiler, after a warm-up call: its wall ms (to
+    a synchronize), the ms the card spent in kernels and copies, the share
+    of the wall time the card was idle, and the number of device ops."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0)
+               for e in evs) / 1e3
+    return dict(wall_ms=wall, device_ms=busy, idle_share=max(0.0, 1.0 - busy / wall),
+                device_ops=sum(e.count for e in evs))
+
+
+def phase_jpeg(dev, smi):
+    """The JPEG encoder on one FULL frame, card against CPU and timed, then
+    BASELINE config 5 through the streaming executor in both JPEG modes."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import kernels, native
+    from tpu_darktable_torch.ops import jpeg as jp
+    from tpu_darktable_torch.ops import jpeg_entropy
+    from tpu_darktable_torch.pipeline.streaming import StreamingExecutor
+
+    if native.get_lib() is None:
+        raise AssertionError('the native host scan (native/bitpack.cpp) did not build')
+    proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             full_settings(), device=dev, white_balance=WB)
+    data = config5_frame()
+    batch = torch.from_numpy(np.stack([data, data])).to(dev)
+    frame = proc.process_batch(batch)[1]
+    frame_cpu = frame.cpu()
+    report = {'card': smi}
+
+    # (a) the card against the CPU
+    for ss, label in ((0, '4:4:4'), (2, 'gray'), (1, '4:2:2')):
+        blocks = jp._prepare_device_stage(frame, 90, 3, ss)[4]
+        cpu = jp._prepare_device_stage(frame_cpu, 90, 3, ss)[4]
+        n_diff = sum(int((a.cpu() != b).sum()) for a, b in zip(blocks, cpu))
+        log(f'jpeg DCT stage {label} card vs cpu: {n_diff} of '
+            f'{sum(b.numel() for b in cpu)} coefficients differ')
+        if n_diff:
+            raise AssertionError(f'DCT stage {label}: card and CPU differ in {n_diff} coefficients')
+    # blocks and cpu are 4:2:2 from here; the CPU's encodes finish from its own stage
+    ri = jp._resolve_restart_interval(None, W, 1, 3, blocks)
+    if jpeg_entropy.entropy_encode_device(blocks, 1, ri) is None:
+        raise AssertionError('the device entropy overflowed its default capacity on a FULL frame')
+    qy, qc = jp.quality_to_tables(90)
+    ref = jp._host_entropy_bitstream(cpu, H, W, qy, qc, 1, 3, ri)
+    encodes = {'device entropy': jp.encode_jpeg(frame, 90, entropy='device'),
+               'host native scan': jp.encode_jpeg(frame, 90, entropy='host'),
+               'encode_jpeg_async': jp.encode_jpeg_async(frame, 90).result()}
+    for label, got in encodes.items():
+        if not np.array_equal(got, ref):
+            raise AssertionError(f'{label} bytes differ from the CPU host-entropy encode')
+    prog = jp.encode_jpeg(frame, 90, progressive=True)
+    if not np.array_equal(prog, jp._encode_progressive([b.numpy() for b in cpu], H, W, qy, qc, 1)):
+        raise AssertionError('progressive bytes differ between the card and the CPU')
+    log(f'jpeg 4:2:2 q90 restart {ri}: device entropy, host native scan, async and the CPU '
+        f'encode give the same {len(ref)} bytes; progressive card == cpu ({len(prog)} bytes); '
+        'no overflow at the default capacity')
+
+    # (b) times of one frame
+    host_blocks = [b.cpu().numpy() for b in blocks]
+    tables = tuple((jp._HUFF[('dc', t)][0], jp._HUFF[('dc', t)][1], jp._HUFF[('ac', t)][0],
+                    jp._HUFF[('ac', t)][1]) for t in (0, 1))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    jp.encode_jpeg(frame, 90, entropy='device')
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    report.update(
+        dct_stage_ms=cuda_ms(lambda: jp._prepare_device_stage(frame, 90, 3, 1), iters=10, warmup=2),
+        device_entropy_ms=wall_ms(
+            lambda: jpeg_entropy.entropy_encode_device(blocks, 1, ri), 5),
+        host_native_scan_ms=wall_ms(
+            lambda: native.jpeg_encode_baseline_native(host_blocks, 1, tables, ri), 5),
+        encode_device_ms=wall_ms(lambda: jp.encode_jpeg(frame, 90, entropy='device'), 5),
+        encode_host_ms=wall_ms(lambda: jp.encode_jpeg(frame, 90, entropy='host'), 5),
+        progressive_ms=wall_ms(lambda: jp.encode_jpeg(frame, 90, progressive=True), 2),
+        bytes_per_frame=len(ref), peak_gib_device_entropy_encode=peak,
+        sync_points_process_batch=sync_points(lambda: proc.process_batch(batch)),
+        sync_points_process_batch_from_host=sync_points(
+            lambda: proc.process_batch(np.stack([data, data]))),
+        sync_points_encode_jpeg_async=sync_points(lambda: jp.encode_jpeg_async(frame, 90)))
+    log('jpeg one frame: ' + ', '.join(f'{k} {v}' for k, v in report.items() if k != 'card'))
+    for name in ('sync_points_process_batch', 'sync_points_process_batch_from_host',
+                 'sync_points_encode_jpeg_async'):
+        if report[name]:
+            raise AssertionError(f'{name}: the host waits for the card at {report[name]}, so '
+                                 'batch N+1 cannot be enqueued while batch N runs')
+
+    # (c) BASELINE config 5: FULL at 4096x3000, batch 2, quality 90, streamed
+    n_frames, warm = 32, 2
+    full_ms = wall_ms(lambda: (proc.process_batch(batch), torch.cuda.synchronize()), 5) / 2
+    runs, executors = {}, {}
+    for device_jpeg in (True, False):
+        proc.bounds = proc.metrics = None   # each run starts from the same EMA state
+        ex = StreamingExecutor(proc, batch_size=2, jpeg_quality=90, jpeg_workers=2,
+                               keep_images=False, device_jpeg=device_jpeg)
+        kernels.reset_launches()
+        ex.run([(f'warm{i}', data) for i in range(warm)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = ex.run([(f'f{i}', data) for i in range(n_frames)])
+        seconds = (time.perf_counter() - t0) / n_frames
+        launches = dict(kernels.launches)
+        bad = [r.name for r in results
+               if r.error is not None or not (r.jpeg or b'').startswith(b'\xff\xd8')]
+        if bad or len(results) != n_frames:
+            raise AssertionError(f'config 5 streaming failures: {bad} '
+                                 f'{[r.error for r in results if r.error]}')
+        for name, n in launches.items():
+            if n != (warm + n_frames if name in FULL_KERNELS else 0):
+                raise AssertionError(f'config 5 launched {name} {n} times')
+        mode = 'device_jpeg' if device_jpeg else 'host_jpeg_2_workers'
+        executors[mode] = ex
+        runs[mode] = {r.name: r.jpeg for r in results}
+        report[mode] = dict(s_per_frame=seconds, frames_per_s=1.0 / seconds,
+                            mb_per_frame=float(np.mean([len(r.jpeg) for r in results])) / 1e6)
+        log(f'config 5 ({mode}): {n_frames} frames, {seconds:.4f} s/frame, '
+            f'{1 / seconds:.2f} frames/s, {report[mode]["mb_per_frame"]:.3f} MB/frame; '
+            f'launches {launches}')
+    if runs['device_jpeg'] != runs['host_jpeg_2_workers']:
+        raise AssertionError('config 5: the device-JPEG and host-JPEG runs differ in their bytes')
+    report['full_process_batch_ms_per_frame'] = full_ms
+    log(f'config 5: both modes give the same bytes frame for frame; FULL process_batch alone '
+        f'(batch 2) {full_ms:.2f} ms/frame in this call')
+
+    # (d) the card's busy time under torch.profiler, last: where a profiler
+    # session ran before them, FULL and config 5 timed 40-65% slower
+    profiled = {'dct_stage': lambda: jp._prepare_device_stage(frame, 90, 3, 1),
+                'device_entropy': lambda: jpeg_entropy.entropy_encode_device(blocks, 1, ri),
+                'full_process_batch_2': lambda: proc.process_batch(batch)}
+    for mode, ex in executors.items():
+        profiled[f'config5_{mode}_2_frames'] = \
+            lambda ex=ex: ex.run([(f'p{i}', data) for i in range(2)])
+    for label, fn in profiled.items():
+        report[f'profile_{label}'] = device_busy(fn)
+        log(f'profile of {label}: {report[f"profile_{label}"]}')
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs one GPU',
@@ -914,11 +1141,13 @@ def main():
     launches['grid_blur_xyz'] = timed(phase_general_bilateral, dev)['grid_blur_xyz']
     launches['bilateral_fused'] = timed(phase_wiener_route, dev)['bilateral_fused']
     timed(phase_piecewise, dev)
+    jpeg = timed(phase_jpeg, dev, smi)
     log(f'seconds by phase: {seconds}')
     for k in kern:
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms']
+    print(json.dumps({'jpeg': jpeg}))
     print(json.dumps({'kernels': [{key: k[key] for key in keys} for k in kern]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -189,3 +189,41 @@ def test_routes_launch_their_kernels(dev):
     bilateral.bilateral_process(lum, 2.0, 0.2, 0.4)
     assert kernels.launches['bilateral_band'] == 1
     assert kernels.launches['bilateral_fused'] == 0
+
+
+def _jpeg_image(seed, h, w):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 90 * np.sin(xx / 23) * np.cos(yy / 17), 128 + 70 * np.cos(xx / 11),
+                    128 + 50 * np.sin((xx + yy) / 31)], -1)
+    return torch.from_numpy(np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(61, 45), (480, 640), (3000, 4096)])
+@pytest.mark.parametrize('subsampling', [0, 1, 2])
+def test_jpeg_stage_on_card(dev, subsampling, h, w):
+    """The DCT stage on the card equals the same stage on the CPU,
+    coefficient for coefficient (elementwise ops in a fixed order)."""
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    img = _jpeg_image(h + w, h, w)
+    card = jp._prepare_device_stage(img.to(dev), 90, 3, subsampling)[4]
+    cpu = jp._prepare_device_stage(img, 90, 3, subsampling)[4]
+    for a, b in zip(card, cpu):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w,restart_interval', [(61, 45, 0), (480, 640, 5), (3000, 4096, None)])
+def test_device_entropy_on_card(dev, h, w, restart_interval):
+    """Device entropy on the card against the native host scan: the same
+    bytes, with and without restart intervals; async equals sync."""
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    img = _jpeg_image(h * w, h, w).to(dev)
+    host = jp.encode_jpeg(img, 90, restart_interval=restart_interval, entropy='host')
+    device = jp.encode_jpeg(img, 90, restart_interval=restart_interval, entropy='device')
+    pending = jp.encode_jpeg_async(img, 90, restart_interval=restart_interval)
+    assert np.array_equal(device, host)
+    assert np.array_equal(pending.result(), host)

@@ -200,6 +200,10 @@ def test_port_imports_without_jax():
         "import tpu_darktable_torch.local_contrast, tpu_darktable_torch.debayer\n"
         "import tpu_darktable_torch.kernels.wiener_core, tpu_darktable_torch.kernels.bilateral_fused\n"
         "import tpu_darktable_torch.pipeline.presets, tpu_darktable_torch.tonemap\n"
+        "import tpu_darktable_torch.jpeg, tpu_darktable_torch.ops.jpeg\n"
+        "import tpu_darktable_torch.ops.jpeg_entropy, tpu_darktable_torch.ops.jpeg_progressive\n"
+        "import tpu_darktable_torch.native, tpu_darktable_torch.pipeline.streaming\n"
+        "import tpu_darktable_torch.utils.timing\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,

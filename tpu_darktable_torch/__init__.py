@@ -4,10 +4,13 @@ A second package beside the JAX one, module for module.  Public entry
 points run on the card (`cuda`) unless the caller passes `device='cpu'`;
 asking for the card where there is none raises.  Every Pallas kernel of the
 JAX package has a hand-written CUDA C++ counterpart for Hopper (csrc/),
-each with a plain PyTorch version that the CPU runs (kernels/).
+each with a plain PyTorch version that the CPU runs (kernels/).  The JPEG
+encoder (jpeg.py) and the streaming executor (pipeline/streaming.py) turn
+the pipeline's frames into JFIF bytes.
 """
 
-from . import bayer, color_conversion, debayer, denoise, local_contrast, tonemap, white_balance
+from . import (bayer, color_conversion, debayer, denoise, jpeg, local_contrast, tonemap,
+               white_balance)
 from .bayer import BayerPattern, PackedFormat, load_as_bayer, rgb_to_bayer
 from .color_conversion import (
     color_transform_3x3,
@@ -38,6 +41,7 @@ from .debayer import (
     encode12_u16,
 )
 from .denoise import Wiener, estimate_channel_noise
+from .jpeg import InputFormat, Jpeg, JpegException, Subsampling
 from .local_contrast import Bilateral
 from .pipeline import (
     CameraSettings,
@@ -75,8 +79,12 @@ __all__ = [
     'ImageProcessingSettings',
     'ImageProcessor',
     'ImageTransform',
+    'InputFormat',
+    'Jpeg',
+    'JpegException',
     'PackedFormat',
     'PostProcess',
+    'Subsampling',
     'ToneMapper',
     'TonemapParameters',
     'Wiener',
@@ -103,6 +111,7 @@ __all__ = [
     'estimate_channel_noise',
     'estimate_white_balance',
     'get_preset',
+    'jpeg',
     'lab_to_rgb',
     'lab_to_xyz',
     'linear_tonemap',

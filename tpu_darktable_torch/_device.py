@@ -20,4 +20,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ['resolve_device']
+def to_device(values, device, dtype=None) -> torch.Tensor:
+    """Values (a number, a sequence, an array or a tensor) as a tensor on
+    `device`, without making the host wait for the card: host values reach
+    a card through pinned memory by a non-blocking copy, where a copy from
+    pageable memory would first wait for all the work enqueued before it."""
+    dev = torch.device(device)
+    t = torch.as_tensor(values, dtype=dtype)
+    if dev.type != 'cuda' or t.is_cuda:
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+__all__ = ['resolve_device', 'to_device']

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import to_device
 from .._validate import check_channels_last
 
 _RGB_TO_XYZ = np.array(
@@ -99,7 +100,7 @@ def _lab_f_inv(t):
 
 
 def _white(like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(_D65_WHITE, device=like.device)
+    return to_device(_D65_WHITE, like.device)
 
 
 def xyz_to_lab(xyz: torch.Tensor) -> torch.Tensor:

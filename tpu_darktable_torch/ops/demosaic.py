@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import to_device
 from .._validate import as_mosaic
 from .bayer import BayerPattern, fc, fc_tile, pixel_order
 from ._stencil import Shifter, interior_mask, row_col_iota, site_masks, sort9
@@ -19,7 +20,7 @@ _F32 = torch.float32
 
 def _tile2x2_map(h: int, w: int, tile, device) -> torch.Tensor:
     """Expand a (2, 2) table into an (h, w) map by row/column parity."""
-    t = torch.as_tensor(tile, device=device)
+    t = to_device(tile, device)
     return t.repeat((h + 1) // 2, (w + 1) // 2)[:h, :w]
 
 

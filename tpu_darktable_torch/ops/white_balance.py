@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import to_device
 from .bayer import BayerPattern, fc_tile
 
 
@@ -34,7 +35,7 @@ def apply_white_balance(bayer_image: torch.Tensor, gains: torch.Tensor,
     if tuple(gains.shape) != (3,):
         raise RuntimeError(f'gains must have shape (3,), got {tuple(gains.shape)}')
     h, w = bayer_image.shape[-2:]
-    tile = gains[torch.as_tensor(_gain_tile(pattern), device=gains.device)]  # (2, 2)
+    tile = gains[to_device(_gain_tile(pattern), gains.device)]  # (2, 2)
     gain_map = tile.repeat((h + 1) // 2, (w + 1) // 2)[:h, :w]
     return torch.clamp(bayer_image * gain_map, 0.0, 1.0)
 

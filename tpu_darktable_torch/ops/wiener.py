@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import to_device
 from ..kernels.wiener_core import folded_bases, wiener_tile_core
 
 _F32 = torch.float32
@@ -237,7 +238,7 @@ def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
         raise ValueError(f'overlap_factor must be 2, 4, or 8, got {overlap_factor}')
     dev = x.device
     _require_fp32_matmul(dev)
-    sigmas = torch.as_tensor(noise_sigmas, dtype=_F32, device=dev).reshape(-1).expand(c)
+    sigmas = to_device(noise_sigmas, dev, _F32).reshape(-1).expand(c)
 
     ov = overlap_factor
     stride = k // ov

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..debayer import PPG, RCD, PostProcess
 from ..denoise import Wiener
 from ..local_contrast import Bilateral
@@ -256,7 +256,7 @@ class ImageProcessor:
     def _as_bytes(self, data) -> torch.Tensor:
         if isinstance(data, np.ndarray):
             data = torch.from_numpy(np.ascontiguousarray(data))
-        return data.to(device=self.device, dtype=torch.uint8)
+        return to_device(data, self.device, torch.uint8)
 
     # ---- piecewise API ----
 
@@ -334,7 +334,7 @@ class ImageProcessor:
             bytes_batch = bytes_batch[:, : -self.padding]
         first = self.bounds is None
         f32 = dict(dtype=torch.float32, device=self.device)
-        alpha = torch.tensor(1.0 if first else self.settings.moving_average, **f32)
+        alpha = torch.full((), 1.0 if first else self.settings.moving_average, **f32)
         bounds_in = torch.zeros(2, **f32) if first else self.bounds
         metrics_in = torch.zeros(5, **f32) if first else self.metrics
         wb = self.white_balance if self.white_balance is not None else torch.ones(3, **f32)

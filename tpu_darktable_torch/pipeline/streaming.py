@@ -1,0 +1,232 @@
+"""Streaming executor: overlapped device ISP, JPEG and host work
+(counterpart of tpu_darktable/pipeline/streaming.py).
+
+The serving runtime around the fused pipeline (BASELINE config 5: "full
+fused ISP incl. JPEG, streaming batch").  PyTorch enqueues CUDA work without
+waiting for it, so the host drains batch N's results while the card runs
+batch N+1:
+
+    feed (raw bytes) -> device fused ISP -> JPEG (device or host workers)
+
+The reference has no streaming runtime (it loops synchronously per frame
+with host syncs, image_processor.py:284-300).
+
+Device-JPEG mode is double-buffered: each batch's JPEG device work
+(orientation transform + DCT/quant + entropy packing) is enqueued right
+after that batch's ISP - before the NEXT batch's ISP - and the host reads
+batch N's compressed streams (PendingJpeg.result, which waits on an event
+of that encode only) while batch N+1 computes.  Only the packed streams
+cross to the host.  Host-JPEG mode reads each batch's frames back and
+encodes them in worker threads with the host entropy scan (the native
+packer releases the GIL).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass, field
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+
+@dataclass
+class StreamResult:
+    """One completed frame."""
+
+    name: str
+    image: np.ndarray | None = None     # uint8 (H, W, 3) unless jpeg-only
+    jpeg: bytes | None = None
+    error: Exception | None = None
+
+
+@dataclass
+class StreamingExecutor:
+    """Pump frame batches through an ImageProcessor with overlapped stages.
+
+    Args:
+        processor: a pipeline.ImageProcessor (holds the fused pipeline + EMA).
+        batch_size: frames per device batch.
+        jpeg_quality: encode quality; None disables JPEG (images only).
+        jpeg_workers: host JPEG encoder threads (host-entropy mode only).
+        keep_images: include the uint8 frame in results (costs a frame
+            readback; with device JPEG and keep_images=False only the
+            compressed bytes cross to the host).
+        device_jpeg: encode the entropy stream on the device (nvJPEG's
+            fully-on-accelerator contract, jpeg_encoder.cu:117-173); else
+            host worker threads run the host entropy scan.  None = auto: on
+            when the processor's device is a card.
+    """
+
+    processor: object
+    batch_size: int = 2
+    jpeg_quality: int | None = 90
+    jpeg_workers: int = 2
+    keep_images: bool = True
+    device_jpeg: bool | None = None
+    _jpeg: object = field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.jpeg_quality is not None:
+            from ..jpeg import Jpeg
+
+            self._jpeg = Jpeg()
+        if self.device_jpeg is None:
+            self.device_jpeg = self.processor.device.type == 'cuda'
+
+    def run(self, frames: Iterable[tuple[str, object]],
+            on_result: Callable[[StreamResult], None] | None = None):
+        """Process (name, raw_bytes_array) pairs; returns results in
+        completion order.  Device work for batch i+1 overlaps the JPEG
+        readback or encoding of batch i."""
+        results: list[StreamResult] = []
+        out_q: queue.Queue = queue.Queue()
+        jpeg_q: queue.Queue = queue.Queue(maxsize=self.jpeg_workers * 4)
+        device = self.processor.device
+
+        def _jpeg_worker():
+            while True:
+                item = jpeg_q.get()
+                if item is None:
+                    return
+                name, img = item
+                try:
+                    data = self._jpeg.encode(
+                        np.ascontiguousarray(img), quality=self.jpeg_quality,
+                        entropy='host', device=device,
+                    )
+                    out_q.put(StreamResult(
+                        name=name,
+                        image=img if self.keep_images else None,
+                        jpeg=np.asarray(data).tobytes(),
+                    ))
+                except Exception as e:  # a frame's failure is its result
+                    out_q.put(StreamResult(name=name, error=e))
+
+        use_device_jpeg = self._jpeg is not None and self.device_jpeg
+        workers = []
+        if self._jpeg is not None and not use_device_jpeg:
+            workers = [
+                threading.Thread(target=_jpeg_worker, daemon=True)
+                for _ in range(self.jpeg_workers)
+            ]
+            for t in workers:
+                t.start()
+
+        pending = 0
+        batch_names: list[str] = []
+        batch_bytes: list = []
+        inflight: list[tuple[list[str], object]] = []
+
+        def _resolve_transform(name):
+            from .transform import ImageTransform
+
+            tf = self.processor.transforms
+            if isinstance(tf, dict):
+                tf = tf.get(name, ImageTransform.none)
+            return tf
+
+        def _host_transform(img, name):
+            """Orientation transform on the host (numpy); the same dispatch
+            table as the device path (transform.transform)."""
+            from .transform import transform
+
+            return transform(img, _resolve_transform(name), xp=np)
+
+        def _device_transform(img, name):
+            """Orientation transform of a tensor on its device."""
+            from .transform import transform
+
+            return transform(img, _resolve_transform(name))
+
+        def _dispatch_device_jpeg(names, out_dev):
+            """Enqueue all of this batch's device work (transform + DCT +
+            entropy packing) NOW, before the next batch's ISP is enqueued,
+            so the card runs it back-to-back with the batch's ISP and the
+            later .result() readbacks overlap the next batch's compute."""
+            pend = []
+            for i, name in enumerate(names):
+                try:
+                    img_dev = _device_transform(out_dev[i], name)
+                    handle = self._jpeg.encode_async(
+                        img_dev, quality=self.jpeg_quality)
+                    pend.append((name, img_dev, handle, None))
+                except Exception as e:  # a frame's failure is its result
+                    pend.append((name, None, None, e))
+            return pend
+
+        def _drain_device(batch):
+            nonlocal pending
+            names, payload = batch
+            if use_device_jpeg:
+                # Host side only: read back the compressed streams (and the
+                # frame itself if keep_images).  All device work was already
+                # enqueued at flush time.
+                for name, img_dev, handle, err in payload:
+                    try:
+                        if err is not None:
+                            raise err
+                        r = StreamResult(
+                            name=name,
+                            image=img_dev.cpu().numpy()
+                            if self.keep_images else None,
+                            jpeg=handle.result().tobytes(),
+                        )
+                    except Exception as e:  # a frame's failure is its result
+                        r = StreamResult(name=name, error=e)
+                    results.append(r)
+                    if on_result:
+                        on_result(r)
+                return
+            host = payload.cpu().numpy()  # waits for the batch
+            for i, name in enumerate(names):
+                img = np.ascontiguousarray(_host_transform(host[i], name))
+                if self._jpeg is not None:
+                    jpeg_q.put((name, img))
+                    pending += 1
+                else:
+                    r = StreamResult(name=name, image=img)
+                    results.append(r)
+                    if on_result:
+                        on_result(r)
+
+        def _flush_batch():
+            if not batch_names:
+                return
+            out = self.processor.process_batch(torch.stack([torch.as_tensor(b)
+                                                            for b in batch_bytes]))
+            payload = (_dispatch_device_jpeg(batch_names, out)
+                       if use_device_jpeg else out)
+            inflight.append((list(batch_names), payload))
+            batch_names.clear()
+            batch_bytes.clear()
+            # keep at most one batch in flight: drain the older one while the
+            # device chews on the newer
+            if len(inflight) > 1:
+                _drain_device(inflight.pop(0))
+
+        for name, data in frames:
+            batch_names.append(name)
+            batch_bytes.append(data)
+            if len(batch_names) == self.batch_size:
+                _flush_batch()
+        _flush_batch()
+        while inflight:
+            _drain_device(inflight.pop(0))
+
+        if self._jpeg is not None:
+            for _ in range(pending):
+                r = out_q.get()
+                results.append(r)
+                if on_result:
+                    on_result(r)
+            for _ in workers:
+                jpeg_q.put(None)
+            for t in workers:
+                t.join()
+        return results
+
+
+__all__ = ['StreamResult', 'StreamingExecutor']

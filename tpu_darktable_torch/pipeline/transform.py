@@ -19,25 +19,31 @@ class ImageTransform(Enum):
     transverse = 7
 
 
-def transform(image: torch.Tensor, tf: ImageTransform) -> torch.Tensor:
-    """Apply an orientation transform over the leading (H, W) axes."""
+def transform(image, tf: ImageTransform, xp=torch):
+    """Apply an orientation transform over the leading (H, W) axes.
+
+    ``xp`` selects the array module: torch (default, a tensor on its device)
+    or numpy (host-side, e.g. the streaming executor's host-entropy path).
+    One dispatch table serves every caller, so a new enum member raises here
+    instead of diverging between copies.
+    """
     match tf:
         case ImageTransform.none:
             return image
         case ImageTransform.rotate_90:
-            return torch.rot90(image, 1, (0, 1))
+            return xp.rot90(image, 1, (0, 1))
         case ImageTransform.rotate_180:
-            return torch.rot90(image, 2, (0, 1))
+            return xp.rot90(image, 2, (0, 1))
         case ImageTransform.rotate_270:
-            return torch.rot90(image, 3, (0, 1))
+            return xp.rot90(image, 3, (0, 1))
         case ImageTransform.flip_horiz:
-            return torch.flip(image, (1,))
+            return xp.flip(image, (1,))
         case ImageTransform.flip_vert:
-            return torch.flip(image, (0,))
+            return xp.flip(image, (0,))
         case ImageTransform.transverse:
-            return torch.flip(image, (0, 1))
+            return xp.flip(image, (0, 1))
         case ImageTransform.transpose:
-            return image.transpose(0, 1)
+            return xp.swapaxes(image, 0, 1)
     raise ValueError(f'Invalid transform: {tf}')
 
 
