@@ -80,8 +80,24 @@ Phases (any failure raises and the script exits non-zero):
      alone in the same call.  Last, the card's busy time and idle share
      (torch.profiler) of the DCT stage, the device entropy, one FULL batch
      of 2 and 2 streamed frames in each mode.
-Then one JSON line with the JPEG numbers, one with the kernels, the card's
-name and power limit, and the result JSON as the last line.
+ 11. config 4 and the local Laplacian (run after phase 9, its profiling
+     after phase 10's).  BASELINE config 4 (benchmarks/baseline_configs.py
+     :141-156): local_laplacian with the default parameters on a 4096x3000
+     plane of uniform values times 0.8, then Reinhard, filmic and ACES of
+     the stacked RGB with that config's parameters and metrics: ms/frame
+     and the Laplacian alone by CUDA events after a warm-up, peak memory,
+     and (after phase 10) device ops a frame and the card's idle share.
+     local_laplacian card vs CPU at 4096x3000 with neutral parameters (pad
+     32: bit for bit) and with shadows 0.6, highlights 1.4, clarity 0.3
+     (the full pad 1024: 1e-3 in under 0.5% of the elements), with the
+     non-neutral time and peak memory.  FULL with enable_laplacian and
+     lap_clarity 0.3 (golden rcd_linear_lap's local contrast) at 4096x3000,
+     3 batches of 4: ms/frame over batches 2-3, peak memory, 12 launches of
+     each of FULL's four kernels, no host wait in process_batch (CUDA sync
+     debugging); card vs CPU at 1024x768 fused and piecewise (1 count).
+Then one JSON line with the JPEG numbers, one with the Laplacian's, one
+with the kernels, the card's name and power limit, and the result JSON as
+the last line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -1113,6 +1129,144 @@ def phase_jpeg(dev, smi):
     return report
 
 
+# ---------------------------------------------------------------- phase 11
+
+def config4_inputs(dev):
+    """BASELINE config 4's plane, tonemap parameters and metrics."""
+    from tpu_darktable_torch.ops import tonemap
+
+    lum = (np.random.default_rng(0).random((H, W)) * 0.8).astype(np.float32)
+    params = tonemap.TonemapParameters(gamma=1.5, intensity=2.0, vibrance=0.5)
+    metrics = torch.tensor([-1.5, 0.3, 0.3, 0.35, 0.25], dtype=torch.float32, device=dev)
+    return torch.from_numpy(lum), params, metrics
+
+
+def config4_frame(lum, params, metrics):
+    """One frame of config 4: the local Laplacian, then three tonemaps of
+    the stacked RGB."""
+    from tpu_darktable_torch.ops import laplacian, tonemap
+
+    y = laplacian.local_laplacian(lum, laplacian.LaplacianParams())
+    rgb = torch.stack([y, y, y], dim=-1)
+    return (tonemap.reinhard_tonemap(rgb, metrics, params), tonemap.filmic_tonemap(rgb, params),
+            tonemap.aces_tonemap(rgb, params))
+
+
+def peak_gib(fn):
+    """Peak device memory of fn() above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_laplacian(dev):
+    """BASELINE config 4, local_laplacian card vs CPU at full width, and
+    FULL with the Laplacian.  Returns the report and the runs to profile
+    after phase 10."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import kernels
+    from tpu_darktable_torch.ops import laplacian
+
+    report = {}
+    lum_cpu, params, metrics = config4_inputs(dev)
+    lum = lum_cpu.to(dev)
+
+    # (a) config 4
+    outs = config4_frame(lum, params, metrics)
+    for u in outs:
+        if tuple(u.shape) != (H, W, 3) or u.dtype != torch.uint8 or u.float().std().item() < 1.0:
+            raise AssertionError(f'config 4 tonemap output {tuple(u.shape)} {u.dtype} wrong or flat')
+    neutral = laplacian.LaplacianParams()
+    report.update(
+        config4_ms_per_frame=cuda_ms(lambda: config4_frame(lum, params, metrics), 5, 2),
+        config4_laplacian_ms=cuda_ms(lambda: laplacian.local_laplacian(lum, neutral), 5, 2),
+        config4_peak_gib=peak_gib(lambda: config4_frame(lum, params, metrics)))
+    log(f'config 4 {W}x{H}: {report["config4_ms_per_frame"]:.3f} ms/frame '
+        f'({1e3 / report["config4_ms_per_frame"]:.2f} frames/s), the Laplacian alone '
+        f'{report["config4_laplacian_ms"]:.3f} ms, peak {report["config4_peak_gib"]:.3f} GiB')
+
+    # (b) local_laplacian, card against CPU, at full width
+    strong = laplacian.LaplacianParams(shadows=0.6, highlights=1.4, clarity=0.3)
+    for label, p in (('neutral', neutral), ('strong', strong)):
+        pad = laplacian.auto_max_supp(W, H, p)
+        card = laplacian.local_laplacian(lum, p).cpu()
+        d = (card - laplacian.local_laplacian(lum_cpu, p)).abs()
+        max_d, share = d.max().item(), (d > 0).float().mean().item()
+        report[f'card_vs_cpu_{label}'] = dict(pad=pad, max_abs=max_d, share_differing=share)
+        log(f'local_laplacian {label} (pad {pad}) card vs cpu at {W}x{H}: max |diff| {max_d:.3e}, '
+            f'{share:.3e} of elements differ')
+        if (label == 'neutral' and max_d != 0.0) or max_d > 1e-3 or share >= 5e-3:
+            raise AssertionError(f'local_laplacian {label}: card and CPU differ by {max_d} in '
+                                 f'{share} of the elements')
+    report['strong_laplacian_ms'] = cuda_ms(lambda: laplacian.local_laplacian(lum, strong), 3, 1)
+    report['strong_laplacian_peak_gib'] = peak_gib(lambda: laplacian.local_laplacian(lum, strong))
+    log(f'local_laplacian strong (pad {report["card_vs_cpu_strong"]["pad"]}) {W}x{H}: '
+        f'{report["strong_laplacian_ms"]:.3f} ms, peak {report["strong_laplacian_peak_gib"]:.3f} GiB')
+
+    # (c) FULL with the Laplacian (lap_clarity 0.3: the full pad)
+    settings = dataclasses.replace(full_settings(), enable_laplacian=True, lap_clarity=0.3)
+    proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             settings, device=dev, white_balance=WB)
+    batches = [synthetic_frames(W, H, BATCH, seed=1100 + b).to(dev) for b in range(N_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = proc.process_batch(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.launches)
+    full_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'FULL+laplacian launches: {launches}')
+    for name, n in launches.items():
+        if n != (BATCH * N_BATCHES if name in FULL_KERNELS else 0):
+            raise AssertionError(f'FULL+laplacian launched {name} {n} times')
+    if tuple(out.shape) != (BATCH, H, W, 3) or out.float().std().item() < 1.0:
+        raise AssertionError(f'FULL+laplacian output {tuple(out.shape)} is wrong or flat')
+    if not (torch.isfinite(proc.bounds).all() and torch.isfinite(proc.metrics).all()):
+        raise AssertionError('FULL+laplacian: non-finite EMA state')
+    steady = sum(times[1:]) / (len(times) - 1)
+    waits = sync_points(lambda: proc.process_batch(batches[0]))
+    report.update(full_laplacian_ms_per_frame=steady / BATCH * 1e3, full_laplacian_peak_gib=full_peak,
+                  full_laplacian_sync_points=waits)
+    log(f'FULL+laplacian {W}x{H} batch {BATCH}: batch seconds {[round(t, 4) for t in times]}; '
+        f'{steady / BATCH * 1e3:.2f} ms/frame, {BATCH / steady:.2f} frames/s (batches 2..{N_BATCHES}); '
+        f'peak device memory {full_peak:.2f} GiB; host waits in process_batch: {waits}')
+    if waits:
+        raise AssertionError(f'FULL+laplacian: process_batch makes the host wait at {waits}')
+
+    phase_card_vs_cpu(dev, settings, label='FULL+laplacian')
+    w, h = 1024, 768
+    data = synthetic_frames(w, h, 1, seed=5)[0]
+    mk = lambda d: tt.ImageProcessor((w, h), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                                     settings, device=d, white_balance=WB)
+    a = piecewise(mk(dev), data).cpu().numpy().astype(int)
+    b = piecewise(mk(torch.device('cpu')), data).numpy().astype(int)
+    d = int(np.abs(a - b).max())
+    log(f'piecewise FULL+laplacian card vs cpu at {w}x{h}: max |diff| {d} count(s), '
+        f'{(a != b).mean():.2e} of values differ')
+    if d > 1 or a.std() < 1.0:
+        raise AssertionError(f'piecewise FULL+laplacian: card and CPU differ by {d} counts, or flat')
+
+    profiled = {'config4_frame': lambda: config4_frame(lum, params, metrics),
+                'config4_laplacian': lambda: laplacian.local_laplacian(lum, neutral),
+                'full_laplacian_process_batch_4': lambda: proc.process_batch(batches[0])}
+    return report, profiled
+
+
+def profile_laplacian(report, profiled):
+    """Phase 11's device ops and idle share, after phase 10's profiling."""
+    for label, fn in profiled.items():
+        report[f'profile_{label}'] = device_busy(fn)
+        log(f'profile of {label}: {report[f"profile_{label}"]}')
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs one GPU',
@@ -1141,13 +1295,16 @@ def main():
     launches['grid_blur_xyz'] = timed(phase_general_bilateral, dev)['grid_blur_xyz']
     launches['bilateral_fused'] = timed(phase_wiener_route, dev)['bilateral_fused']
     timed(phase_piecewise, dev)
+    lap, lap_profiled = timed(phase_laplacian, dev)
     jpeg = timed(phase_jpeg, dev, smi)
+    lap = timed(profile_laplacian, lap, lap_profiled)
     log(f'seconds by phase: {seconds}')
     for k in kern:
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms']
     print(json.dumps({'jpeg': jpeg}))
+    print(json.dumps({'laplacian': lap}))
     print(json.dumps({'kernels': [{key: k[key] for key in keys} for k in kern]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

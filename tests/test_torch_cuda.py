@@ -227,3 +227,67 @@ def test_device_entropy_on_card(dev, h, w, restart_interval):
     pending = jp.encode_jpeg_async(img, 90, restart_interval=restart_interval)
     assert np.array_equal(device, host)
     assert np.array_equal(pending.result(), host)
+
+
+def _luminance(seed, h, w):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((h, w)) * 0.8).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(97, 131), (480, 640), (3000, 4096)])
+@pytest.mark.parametrize('storage', [torch.float32, torch.float16])
+@pytest.mark.parametrize('params', [{}, dict(shadows=0.6, highlights=1.4, clarity=0.3)],
+                         ids=['neutral', 'strong'])
+def test_local_laplacian_on_card(dev, params, storage, h, w):
+    """The card against the CPU, with the bars the CPU holds against JAX:
+    float32 storage 1e-6; float16 storage bit for bit with neutral
+    parameters, else 1e-3 in under 0.5% of the elements (torch's `exp`
+    rounds differently on the card and the CPU)."""
+    from tpu_darktable_torch.ops.laplacian import LaplacianParams, local_laplacian
+
+    lum = _luminance(h + w, h, w)
+    p = LaplacianParams(**params)
+    card = local_laplacian(lum.to(dev), p, storage_dtype=storage)
+    assert card.is_cuda
+    d = (card.cpu() - local_laplacian(lum, p, storage_dtype=storage)).abs()
+    if storage == torch.float32:
+        assert d.max().item() <= 1e-6
+    elif not params:
+        assert d.max().item() == 0.0
+    else:
+        assert d.max().item() <= 1e-3 and (d > 0).float().mean().item() < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('adjust', [(0.0, 0.0, 0.0), (0.25, 0.1, -0.05), (-0.6, -0.3, 0.2)])
+def test_hsl_on_card(dev, adjust):
+    """rgb_to_hsl, hsl_to_rgb and modify_hsl, card against CPU: 1e-6 (the
+    hue's division by 6 goes through a device tensor, so the card divides
+    as the CPU does)."""
+    from tpu_darktable_torch.ops import color
+
+    rgb = _rand(21, (300, 401, 3), 'cpu')
+    rgb[0, :3] = torch.tensor([[0.5, 0.5, 0.5], [0.0, 0.0, 0.0], [0.9, 0.3, 0.3]])
+    hsl = color.rgb_to_hsl(rgb)
+    assert (color.rgb_to_hsl(rgb.to(dev)).cpu() - hsl).abs().max().item() <= 1e-6
+    assert (color.hsl_to_rgb(hsl.to(dev)).cpu() - color.hsl_to_rgb(hsl)).abs().max().item() <= 1e-6
+    card = color.modify_hsl(rgb.to(dev), *adjust).cpu()
+    assert (card - color.modify_hsl(rgb, *adjust)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(64, 80), (200, 264), (3000, 4096)])
+@pytest.mark.parametrize('pattern', ['RGGB', 'GBRG'])
+def test_dual_demosaic_on_card(dev, pattern, h, w):
+    """dual_demosaic on the card (RCD through rcd_interior from 96 px up)
+    against the CPU's plain path: 1e-6; one launch where the kernel path
+    runs."""
+    from tpu_darktable_torch.ops.rcd import dual_demosaic
+
+    x = _rand(22, (h, w), 'cpu')
+    kernels.reset_launches()
+    card = dual_demosaic(x.to(dev), BayerPattern[pattern], threshold=0.2, wb=(1.8, 1.0, 1.4))
+    assert kernels.launches['rcd_interior'] == (1 if min(h, w) >= 96 else 0)
+    cpu = dual_demosaic(x, BayerPattern[pattern], threshold=0.2, wb=(1.8, 1.0, 1.4))
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-6

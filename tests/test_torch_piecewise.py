@@ -462,12 +462,11 @@ def test_piecewise_errors_repr_and_final_size(rng):
         tp.load_bytes(np.zeros(100, np.uint8))
     with pytest.raises(AssertionError):
         tp.debayer(torch.zeros(96, 128, 1))
-    # the Laplacian is refused, not skipped: at construction and in process_rgb
-    with pytest.raises(NotImplementedError, match='Laplacian'):
-        tp.update_settings(dataclasses.replace(tp.settings, enable_laplacian=True))
-    tp.settings = dataclasses.replace(tp.settings, enable_laplacian=True)
-    with pytest.raises(NotImplementedError, match='Laplacian'):
-        tp.process_rgb(torch.zeros(96, 128, 3))
+    # the Laplacian is accepted: the workspaces rebuild and process_rgb runs it
+    tp.update_settings(dataclasses.replace(tp.settings, enable_laplacian=True, lap_clarity=0.3))
+    assert tp.settings.enable_laplacian
+    out = tp.process_rgb(torch.full((96, 128, 3), 0.5))
+    assert out.shape == (96, 128, 3) and bool(torch.isfinite(out).all())
 
 
 def test_state_carried_as_metrics_dict():

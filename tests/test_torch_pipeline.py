@@ -90,30 +90,125 @@ def _golden_input(size, ids):
                      tt.PackedFormat.Packed12_IDS if ids else tt.PackedFormat.Packed12)
 
 
-_DN_BIL = dict(enable_denoise=True, enable_bilateral=True)
-_PLAIN = dict(enable_denoise=False, enable_bilateral=False)
+def _golden(debayer, tone, postprocess=True, denoise=True, bilateral=True, **extra):
+    return dict(debayer=tt.Debayer[debayer], tone_mapping=tt.ToneMapper[tone],
+                postprocess=postprocess, enable_denoise=denoise, enable_bilateral=bilateral,
+                **extra)
+
+
+# tests/test_goldens.py:CASES: (size, pattern, IDS, settings)
+_RCD_DN = _golden('rcd', 'reinhard')
+_RCD_PLAIN = _golden('rcd', 'reinhard', denoise=False, bilateral=False)
+_PPG_ACES = _golden('ppg', 'aces', denoise=False, bilateral=False)
 GOLDEN_CASES = {
-    'rcd_reinhard': ((96, 64), 'RGGB', False, _DN_BIL),
-    'rcd_reinhard_ids': ((96, 64), 'RGGB', True, _DN_BIL),
-    'rcd_bggr': ((96, 64), 'BGGR', False, _PLAIN),
-    'rcd_grbg': ((96, 64), 'GRBG', False, _PLAIN),
-    'rcd_4to3_aspect': ((320, 240), 'RGGB', False, _DN_BIL),
+    'rcd_reinhard': ((96, 64), 'RGGB', False, _RCD_DN),
+    'ppg_aces': ((96, 64), 'RGGB', False, _PPG_ACES),
+    'bilinear_adaptive_aces': ((96, 64), 'RGGB', False,
+                               _golden('bilinear', 'adaptive_aces', postprocess=False,
+                                       bilateral=False)),
+    'rcd_linear_lap': ((96, 64), 'RGGB', False,
+                       _golden('rcd', 'linear', postprocess=False, denoise=False,
+                               bilateral=False, enable_laplacian=True, lap_clarity=0.3)),
+    'rcd_reinhard_ids': ((96, 64), 'RGGB', True, _RCD_DN),
+    'rcd_bggr': ((96, 64), 'BGGR', False, _RCD_PLAIN),
+    'rcd_grbg': ((96, 64), 'GRBG', False, _RCD_PLAIN),
+    'ppg_gbrg': ((96, 64), 'GBRG', False, _PPG_ACES),
+    'rcd_4to3_aspect': ((320, 240), 'RGGB', False, _RCD_DN),
 }
 
 
 @pytest.mark.parametrize('name', list(GOLDEN_CASES))
 def test_rcd_goldens(name):
-    """Every golden whose settings need only ported stages: 1 count."""
+    """Every golden of tests/goldens/pipeline_goldens.npz: 1 count."""
     size, pattern, ids, extra = GOLDEN_CASES[name]
     settings = TSettings(tone_intensity=2.0, tone_gamma=1.2, light_adapt=0.8, vibrance=0.3,
-                         debayer=tt.Debayer.rcd, tone_mapping=tt.ToneMapper.reinhard,
-                         postprocess=True, **extra)
+                         **extra)
     proc = tt.ImageProcessor(size, tt.BayerPattern[pattern],
                              tt.PackedFormat.Packed12_IDS if ids else tt.PackedFormat.Packed12,
                              settings, device='cpu', white_balance=WB)
     out = proc.process(_golden_input(size, ids), 'x').numpy()
     ref = np.load(GOLDEN)[name]
     assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+
+
+_LAP_CHAINS = {
+    # tests/test_pipeline.py:test_laplacian_in_fused_chain's chain
+    'bilinear_lap': dict(enable_denoise=False, enable_bilateral=False, postprocess=False,
+                         debayer=JDebayer.bilinear, enable_laplacian=True, lap_clarity=0.5),
+    # golden rcd_linear_lap's local contrast on FULL's settings; the JAX
+    # package on its float32 Wiener route, as the port always is (the
+    # float16 route: test_full_laplacian_metrics_follow_the_float32_route)
+    'full_lap': dict(FULL, enable_laplacian=True, lap_clarity=0.3, denoise_f16=False),
+    'bilateral_lap': dict(FULL, enable_denoise=False, enable_laplacian=True, lap_shadows=0.7,
+                          lap_highlights=1.3),
+}
+
+
+@pytest.mark.parametrize('route', ['fused', 'piecewise'])
+@pytest.mark.parametrize('chain', list(_LAP_CHAINS))
+def test_laplacian_in_chain_matches_jax(chain, route):
+    """The local Laplacian as the last luminance stage, against the JAX
+    ImageProcessor: 1 count; fused over two batches of 2 with the EMA
+    state (bounds 1e-5, metrics 3e-5), piecewise on one frame with bounds
+    and metrics taken at stride 8.  The stage changes the output."""
+    size = (128, 96)
+    js = JSettings(**_LAP_CHAINS[chain])
+    jproc = JProcessor(size, td.BayerPattern.RGGB, td.PackedFormat.Packed12, js,
+                       white_balance=WB)
+    tproc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                              settings_from_dict(js.model_dump()), device='cpu',
+                              white_balance=WB)
+    frames = _frames(*size, 4, seed=21)
+    if route == 'fused':
+        for k in range(2):
+            batch = frames[2 * k : 2 * k + 2]
+            ref = np.asarray(jproc.process_batch(jnp.asarray(batch)))
+            out = tproc.process_batch(batch).numpy()
+            assert np.abs(ref.astype(int) - out.astype(int)).max() <= 1
+            np.testing.assert_allclose(tproc.bounds.numpy(), np.asarray(jproc.bounds), atol=1e-5)
+            np.testing.assert_allclose(tproc.metrics.numpy(), np.asarray(jproc.metrics),
+                                       atol=3e-5)
+    else:
+        rgb = tproc.load_image(frames[0])
+        rgb = tproc.process_rgb(rgb, tt.compute_image_bounds([rgb], stride=8))
+        out = tproc.tonemap(rgb, tt.compute_image_metrics([rgb], stride=8)).numpy()
+        jrgb = jproc.load_image(jnp.asarray(frames[0]))
+        jrgb = jproc.process_rgb(jrgb, td.compute_image_bounds([jrgb], stride=8))
+        ref = np.asarray(jproc.tonemap(jrgb, td.compute_image_metrics([jrgb], stride=8)))
+        assert np.abs(ref.astype(int) - out.astype(int)).max() <= 1
+    off = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                            dataclasses.replace(tproc.settings, enable_laplacian=False),
+                            device='cpu', white_balance=WB)
+    assert (off.process_batch(frames[2:4]).numpy() != out[-1:] if route == 'fused'
+            else off.process(frames[0], 'x').numpy() != out).any()
+
+
+def test_full_laplacian_metrics_follow_the_float32_route():
+    """FULL + Laplacian against the JAX package's default, which rounds its
+    Wiener intermediates to float16 (denoise_f16), and against its float32
+    route: output within 1 count of both, bounds 1e-5.  The port stores
+    nothing in its Wiener stage, so its metrics EMA sits within 3e-5 of the
+    float32 route; the clarity term boosts the float16 rounding noise, so
+    the JAX package's two routes differ by 2.7e-3 (observed, 128x96,
+    clarity 0.3), and the port sits that far from the default."""
+    size = (128, 96)
+    frames = _frames(*size, 2, seed=21)
+    settings = dict(FULL, enable_laplacian=True, lap_clarity=0.3)
+    tproc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                              settings_from_dict(JSettings(**settings).model_dump()),
+                              device='cpu', white_balance=WB)
+    out = tproc.process_batch(frames).numpy().astype(int)
+    metrics = {}
+    for f16 in (True, False):
+        jproc = JProcessor(size, td.BayerPattern.RGGB, td.PackedFormat.Packed12,
+                           JSettings(**settings, denoise_f16=f16), white_balance=WB)
+        ref = np.asarray(jproc.process_batch(jnp.asarray(frames))).astype(int)
+        assert np.abs(ref - out).max() <= 1
+        np.testing.assert_allclose(tproc.bounds.numpy(), np.asarray(jproc.bounds), atol=1e-5)
+        metrics[f16] = np.asarray(jproc.metrics)
+    np.testing.assert_allclose(tproc.metrics.numpy(), metrics[False], atol=3e-5)
+    gap = np.abs(metrics[True] - metrics[False]).max()
+    assert np.abs(tproc.metrics.numpy() - metrics[True]).max() <= gap + 3e-5
 
 
 def test_settings_schema_matches_jax():
@@ -176,9 +271,10 @@ def test_device_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='cuda'):
             tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, settings)
-    with pytest.raises(NotImplementedError):
-        tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
-                          dataclasses.replace(settings, enable_laplacian=True), device='cpu')
+    # every stage is ported: the local Laplacian builds and runs on the CPU
+    lap = tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                            dataclasses.replace(settings, enable_laplacian=True), device='cpu')
+    assert lap.process_rgb(torch.full((64, 64, 3), 0.5)).shape == (64, 64, 3)
     proc = tt.ImageProcessor((64, 64), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
                              settings, device='cpu')
     with pytest.raises(tt.pipeline.ImageSizeMismatchError):
@@ -203,7 +299,8 @@ def test_port_imports_without_jax():
         "import tpu_darktable_torch.jpeg, tpu_darktable_torch.ops.jpeg\n"
         "import tpu_darktable_torch.ops.jpeg_entropy, tpu_darktable_torch.ops.jpeg_progressive\n"
         "import tpu_darktable_torch.native, tpu_darktable_torch.pipeline.streaming\n"
-        "import tpu_darktable_torch.utils.timing\n"
+        "import tpu_darktable_torch.utils.timing, tpu_darktable_torch.ops.laplacian\n"
+        "import tpu_darktable_torch.extension\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,

@@ -6,11 +6,12 @@ asking for the card where there is none raises.  Every Pallas kernel of the
 JAX package has a hand-written CUDA C++ counterpart for Hopper (csrc/),
 each with a plain PyTorch version that the CPU runs (kernels/).  The JPEG
 encoder (jpeg.py) and the streaming executor (pipeline/streaming.py) turn
-the pipeline's frames into JFIF bytes.
+the pipeline's frames into JFIF bytes; `extension` resolves the reference
+binding's names against this package.
 """
 
-from . import (bayer, color_conversion, debayer, denoise, jpeg, local_contrast, tonemap,
-               white_balance)
+from . import (bayer, color_conversion, debayer, denoise, extension, jpeg, local_contrast,
+               tonemap, white_balance)
 from .bayer import BayerPattern, PackedFormat, load_as_bayer, rgb_to_bayer
 from .color_conversion import (
     color_transform_3x3,
@@ -18,6 +19,7 @@ from .color_conversion import (
     compute_luminance,
     lab_to_rgb,
     lab_to_xyz,
+    modify_hsl,
     modify_log_luminance,
     modify_luminance,
     modify_vibrance,
@@ -42,7 +44,7 @@ from .debayer import (
 )
 from .denoise import Wiener, estimate_channel_noise
 from .jpeg import InputFormat, Jpeg, JpegException, Subsampling
-from .local_contrast import Bilateral
+from .local_contrast import Bilateral, Laplacian, LaplacianParams
 from .pipeline import (
     CameraSettings,
     Debayer,
@@ -82,6 +84,8 @@ __all__ = [
     'InputFormat',
     'Jpeg',
     'JpegException',
+    'Laplacian',
+    'LaplacianParams',
     'PackedFormat',
     'PostProcess',
     'Subsampling',
@@ -110,6 +114,7 @@ __all__ = [
     'encode12_u16',
     'estimate_channel_noise',
     'estimate_white_balance',
+    'extension',
     'get_preset',
     'jpeg',
     'lab_to_rgb',
@@ -120,6 +125,7 @@ __all__ = [
     'local_contrast',
     'metrics_from_dict',
     'metrics_to_dict',
+    'modify_hsl',
     'modify_log_luminance',
     'modify_luminance',
     'modify_vibrance',

@@ -6,6 +6,9 @@ for the card where there is none raises: nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -32,4 +35,13 @@ def to_device(values, device, dtype=None) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True)
 
 
-__all__ = ['resolve_device', 'to_device']
+@functools.lru_cache(maxsize=64)
+def scalar_on(value: float, device) -> torch.Tensor:
+    """float32(value) as a 0-d tensor on `device`, made once.  As a divisor
+    it keeps the card's result equal to the CPU's: PyTorch's CUDA division
+    by a Python number multiplies by the reciprocal, by a tensor it
+    divides."""
+    return to_device(np.float32(value), device)
+
+
+__all__ = ['resolve_device', 'scalar_on', 'to_device']

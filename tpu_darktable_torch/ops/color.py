@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import to_device
+from .._device import scalar_on, to_device
 from .._validate import check_channels_last
 
 _RGB_TO_XYZ = np.array(
@@ -132,6 +132,62 @@ def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
     return xyz_to_rgb(lab_to_xyz(lab))
 
 
+def rgb_to_hsl(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB -> HSL, each in [0, 1] for RGB in [0, 1]."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    max_val = torch.maximum(torch.maximum(r, g), b)
+    min_val = torch.minimum(torch.minimum(r, g), b)
+    delta = max_val - min_val
+    L = (max_val + min_val) * 0.5
+
+    chromatic = delta > 1e-6
+    safe_delta = torch.where(chromatic, delta, 1.0)
+    s = torch.where(
+        chromatic,
+        torch.where(L < 0.5, delta / (max_val + min_val), delta / (2.0 - max_val - min_val)),
+        0.0,
+    )
+    h_r = (g - b) / safe_delta + torch.where(g < b, 6.0, 0.0)
+    h_g = (b - r) / safe_delta + 2.0
+    h_b = (r - g) / safe_delta + 4.0
+    h = torch.where(max_val == r, h_r, torch.where(max_val == g, h_g, h_b))
+    h = torch.where(chromatic, h / scalar_on(6.0, rgb.device), 0.0)
+    return torch.stack((h, s, L), dim=-1)
+
+
+def _hsl_hue_to_rgb(p, q, t):
+    t = torch.where(t < 0.0, t + 1.0, t)
+    t = torch.where(t > 1.0, t - 1.0, t)
+    return torch.where(
+        t < 1.0 / 6.0,
+        p + (q - p) * 6.0 * t,
+        torch.where(t < 0.5, q,
+                    torch.where(t < 2.0 / 3.0, p + (q - p) * (2.0 / 3.0 - t) * 6.0, p)),
+    )
+
+
+def hsl_to_rgb(hsl: torch.Tensor) -> torch.Tensor:
+    """HSL -> RGB."""
+    h, s, L = hsl[..., 0], hsl[..., 1], hsl[..., 2]
+    q = torch.where(L < 0.5, L * (1.0 + s), L + s - L * s)
+    p = 2.0 * L - q
+    rgb = torch.stack((_hsl_hue_to_rgb(p, q, h + 1.0 / 3.0), _hsl_hue_to_rgb(p, q, h),
+                       _hsl_hue_to_rgb(p, q, h - 1.0 / 3.0)), dim=-1)
+    return torch.where(s[..., None] == 0.0, L[..., None], rgb)
+
+
+def modify_hsl(rgb: torch.Tensor, hue_adjust: float = 0.0, sat_adjust: float = 0.0,
+               lum_adjust: float = 0.0) -> torch.Tensor:
+    """Shift hue (wrapping), saturation and lightness (clipped) in HSL."""
+    hsl = rgb_to_hsl(rgb)
+    new_hsl = torch.stack((
+        torch.remainder(hsl[..., 0] + hue_adjust + 1.0, 1.0),
+        torch.clamp(hsl[..., 1] + sat_adjust, 0.0, 1.0),
+        torch.clamp(hsl[..., 2] + lum_adjust, 0.0, 1.0),
+    ), dim=-1)
+    return _clip01(hsl_to_rgb(new_hsl))
+
+
 def modify_vibrance(rgb: torch.Tensor, amount: float = 0.0) -> torch.Tensor:
     """darktable vibrance, computed in LAB f-space: L/a/b are affine in
     (fx, fy, fz), so the chroma-dependent scales apply to the f values and
@@ -208,14 +264,17 @@ __all__ = [
     'color_transform_3x3',
     'compute_log_luminance',
     'compute_luminance',
+    'hsl_to_rgb',
     'lab_modify_luminance',
     'lab_to_rgb',
     'lab_to_xyz',
     'linear_to_srgb',
+    'modify_hsl',
     'modify_log_luminance',
     'modify_luminance',
     'modify_vibrance',
     'rgb_to_gray',
+    'rgb_to_hsl',
     'rgb_to_lab',
     'rgb_to_lab_l',
     'rgb_to_lab_with_clipped_l',

@@ -12,16 +12,19 @@ Two paths with one result:
   planes injected so the ring matches the full-frame path exactly.
 
 Even width and height are required: the half-grid emulation relies on it.
+
+`dual_demosaic` blends RCD with the bilinear demosaic by a detail mask.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._device import scalar_on
 from .._validate import as_mosaic
 from ..kernels.rcd_interior import rcd_interior
 from .bayer import BayerPattern, site_parities
-from .demosaic import border_interpolate, ppg_green, ppg_redblue
+from .demosaic import bilinear5x5_demosaic, border_interpolate, ppg_green, ppg_redblue
 from ._stencil import Shifter, interior_mask, row_col_iota, site_masks
 
 _F32 = torch.float32
@@ -316,4 +319,78 @@ def _border_ladder(x: torch.Tensor, pattern: BayerPattern) -> torch.Tensor:
     return torch.where(rb_ring[..., None], rb_b, out)
 
 
-__all__ = ['RCD_MARGIN', 'rcd_demosaic']
+# ---------------------------------------------------------------------------
+# The dual demosaic: RCD where the frame has detail, bilinear where it is
+# smooth, blended by a sigmoid of a Scharr gradient of a luminance proxy.
+# ---------------------------------------------------------------------------
+
+def calc_blend_factor(value, threshold):
+    """Sigmoid blend factor, inflexion at (threshold, 0.5)."""
+    value = torch.as_tensor(value, dtype=_F32)
+    return 1.0 / (1.0 + torch.exp(16.0 - (16.0 / threshold) * value))
+
+
+def calc_y0_mask(rgb, red: float, green: float, blue: float):
+    """Luminance-proxy mask sqrt(mean(max(channel / coeff, 0)))."""
+    rgb = torch.as_tensor(rgb, dtype=_F32)
+    dev = rgb.device
+    val = (torch.clamp(rgb[..., 0] / scalar_on(red, dev), min=0.0)
+           + torch.clamp(rgb[..., 1] / scalar_on(green, dev), min=0.0)
+           + torch.clamp(rgb[..., 2] / scalar_on(blue, dev), min=0.0))
+    return torch.sqrt(val / scalar_on(3.0, dev))
+
+
+def calc_scharr_mask(mask):
+    """Scharr gradient magnitude / 16, clipped to [0, 1]; edge pixels take
+    the value of the row or column one inside."""
+    x = torch.as_tensor(mask, dtype=_F32)
+    s = Shifter(x, 1, mode='constant')
+    gx = (47.0 / 255.0) * (s(-1, -1) - s(-1, 1) + s(1, -1) - s(1, 1)) + (162.0 / 255.0) * (
+        s(0, -1) - s(0, 1))
+    gy = (47.0 / 255.0) * (s(-1, -1) - s(1, -1) + s(-1, 1) - s(1, 1)) + (162.0 / 255.0) * (
+        s(-1, 0) - s(1, 0))
+    grad = torch.clamp(torch.hypot(gx, gy) / 16.0, 0.0, 1.0)
+    grad = torch.cat([grad[1:2], grad[1:-1], grad[-2:-1]], dim=0)
+    return torch.cat([grad[:, 1:2], grad[:, 1:-1], grad[:, -2:-1]], dim=1)
+
+
+def calc_detail_blend(mask, threshold: float, detail: bool):
+    """Blend map from a detail mask: high where detailed, or the inverse."""
+    blend = torch.clamp(calc_blend_factor(mask, threshold), 0.0, 1.0)
+    return blend if detail else 1.0 - blend
+
+
+def blend_dual(high, low, blend_mask, show_mask: bool = False):
+    """max(lerp(low, high, blend), 0) per pixel; with `show_mask` the
+    blend map rides along as a fourth channel."""
+    high = torch.as_tensor(high, dtype=_F32)
+    low = torch.as_tensor(low, dtype=_F32)
+    b = torch.as_tensor(blend_mask, dtype=_F32)[..., None]
+    out = torch.clamp((1.0 - b) * low + b * high, min=0.0)
+    if show_mask:
+        return torch.cat([out, b], dim=-1)
+    return out
+
+
+def dual_demosaic(image, pattern: BayerPattern, threshold: float = 0.15,
+                  wb=(1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Dual demosaic on the image's device: RCD where detailed, bilinear
+    where smooth."""
+    high = rcd_demosaic(image, pattern)
+    low = bilinear5x5_demosaic(image, pattern)
+    y0 = calc_y0_mask(high, *wb)
+    scharr = calc_scharr_mask(y0)
+    blend = calc_detail_blend(scharr, threshold, detail=True)
+    return blend_dual(high, low, blend)
+
+
+__all__ = [
+    'RCD_MARGIN',
+    'blend_dual',
+    'calc_blend_factor',
+    'calc_detail_blend',
+    'calc_scharr_mask',
+    'calc_y0_mask',
+    'dual_demosaic',
+    'rcd_demosaic',
+]

@@ -2,7 +2,8 @@
 tpu_darktable/pipeline/image_processor.py:55-549).
 
     decode12 -> WB -> demosaic -> postprocess -> bounds/EMA -> normalize ->
-    Wiener(log LAB-L) -> bilateral -> metrics/EMA -> tonemap -> uint8
+    Wiener(log LAB-L) -> bilateral -> local Laplacian -> metrics/EMA ->
+    tonemap -> uint8
 
 The per-frame stages run as two Python loops over the batch, split by the
 batch-global bounds EMA, one frame at a time so that live memory stays one
@@ -26,6 +27,7 @@ from ..local_contrast import Bilateral
 from ..ops import bilateral as _bilateral
 from ..ops import color as _color
 from ..ops import demosaic as _demosaic
+from ..ops import laplacian as _laplacian
 from ..ops import packed as _packed
 from ..ops import postprocess as _postprocess
 from ..ops import rcd as _rcd
@@ -49,9 +51,10 @@ class ImageSizeMismatchError(Exception):
         self.padding = padding
 
 
-def _check_ported(settings: ImageProcessingSettings) -> None:
-    if settings.enable_laplacian:
-        raise NotImplementedError('the local Laplacian is not ported yet (ROADMAP Queue 1 #10)')
+def _laplacian_params(settings: ImageProcessingSettings) -> _laplacian.LaplacianParams:
+    return _laplacian.LaplacianParams(sigma=settings.lap_sigma, shadows=settings.lap_shadows,
+                                      highlights=settings.lap_highlights,
+                                      clarity=settings.lap_clarity)
 
 
 def _tonemap_dispatch(settings: ImageProcessingSettings, rgb, metrics):
@@ -80,7 +83,6 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
     metrics (5,), alpha 0-d) -> (uint8 (B, H, W, 3), bounds', metrics'),
     all tensors on one device.
     """
-    _check_ported(settings)
     width, height = image_size
     ids = packed_format is PackedFormat.Packed12_IDS
 
@@ -137,12 +139,20 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
                                            settings.bil_sigma_luminance, settings.bilateral)
         return _color.lab_modify_luminance(lab, out)
 
+    def _laplacian_one(rgb):
+        lab, lum = _lab_and_lum(
+            rgb, input_clipped=settings.enable_denoise or settings.enable_bilateral)
+        return _color.lab_modify_luminance(
+            lab, _laplacian.local_laplacian(lum, _laplacian_params(settings)))
+
     def _back_one(rgb, bounds):
         rgb = normalize_image(rgb, bounds)
         if settings.enable_denoise:
             rgb = _denoise_one(rgb)
         if settings.enable_bilateral:
             rgb = _bilateral_one(rgb)
+        if settings.enable_laplacian:
+            rgb = _laplacian_one(rgb)
         return rgb
 
     def fused(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
@@ -156,7 +166,7 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
         bounds = lerp(bounds_in, _tonemap.compute_image_bounds(torch.stack(samples), stride=1),
                       alpha)
 
-        if settings.enable_denoise or settings.enable_bilateral:
+        if settings.enable_denoise or settings.enable_bilateral or settings.enable_laplacian:
             samples = []
             for i in range(n):
                 rgb[i] = _back_one(rgb[i], bounds)
@@ -305,13 +315,16 @@ class ImageProcessor:
 
     def process_rgb(self, rgb_raw: torch.Tensor, bounds=None) -> torch.Tensor:
         """Normalize by `bounds` if given, then the enabled luminance stages."""
-        _check_ported(self.settings)
         if bounds is not None:
             rgb_raw = normalize_image(rgb_raw, bounds)
         if self.settings.enable_denoise:
             rgb_raw = self.wiener_workspace.process_log_luminance(rgb_raw, self.settings.denoise)
         if self.settings.enable_bilateral:
             rgb_raw = self.bil_workspace.process_rgb(rgb_raw, self.settings.bilateral)
+        if self.settings.enable_laplacian:
+            lum = _color.compute_luminance(rgb_raw)
+            rgb_raw = _color.modify_luminance(
+                rgb_raw, _laplacian.local_laplacian(lum, _laplacian_params(self.settings)))
         return rgb_raw
 
     def tonemap(self, rgb_raw: torch.Tensor, metrics=None) -> torch.Tensor:
