@@ -27,36 +27,39 @@ Phases (any failure raises and the script exits non-zero):
   5. the graded FULL configuration at full width through ImageProcessor:
      4096x3000 RGGB Packed12 with white balance, 3 batches of 4 synthetic
      frames; the launch counts are zeroed just before and read just after:
-     the path runs each of its four kernels once a frame (RCD interior,
-     the 3-pass colour smoothing, the Wiener tile core and the bilateral
-     detail term each in one wrapper call), so each must show exactly
-     BATCH * N_BATCHES = 12, and the other kernels 0.  Prints ms per frame,
-     frames per second, per-stage ms (the Wiener stage split into LAB in and
-     out, slab build, kernel, overlap-add) and peak device memory.
+     the path runs each of its three kernels once a frame (RCD interior,
+     the 3-pass colour smoothing and the bilateral detail term each in one
+     wrapper call; its Wiener stage takes the separable float16 route of the
+     default denoise_f16, as the JAX package's FULL does), so each must show
+     exactly BATCH * N_BATCHES = 12, and the other kernels 0.  Prints ms per
+     frame, frames per second, per-stage ms (the Wiener stage on both routes,
+     the tile-core route split into pad, slab build, kernel, overlap-add and
+     weight division) and peak device memory.
   6. BASELINE config 3: wavelet then NLM denoise of 8 frames of 4096x3000
      RGB from the FULL front end, a warm-up pass then a timed pass with
      exactly 8 launches of each kernel; finite output with a lower std than
      its input.  Prints ms per frame, frames per second and peak memory.
   7. FULL with bil_sigma_spatial = 3, the general bilateral path, through
-     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz and 8
-     wiener_tile_core launches and no bilateral_band; card vs CPU at
-     1024x768 (1 count); one
+     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches
+     and no bilateral_band; card vs CPU at 1024x768 (1 count); one
      bilateral_denoise of a 12 MP plane (2 grid_blur_xyz launches).
-  8. the Wiener route check at full width: wiener_denoise on the tile-core
-     route (the pipeline's) against the separable einsums in float32 (bar
-     1e-3) and with float16 storage (printed, no bar) on the 12 MP log-L
-     plane (C=1) and on a 3-channel frame, and their times in turns
-     (separable float16, tile core, tile core, separable float16; three
-     rounds); then FULL for one batch of 4 with the Wiener stage on the
-     separable float16-storage route (a local copy of the back-end loop,
-     its bilateral detail term taken through kernels.bilateral_fused: the
-     same source as the pipeline's bilateral_band, so the same bits)
-     against process_batch: max count, share of values that differ, share
-     by more than 1 (must be 0); 4 launches of bilateral_fused.
+  8. the Wiener routes at full width: wiener_denoise on the tile-core
+     route (FULL's with denoise_f16 off) against the separable einsums in
+     float32 (bar 1e-3) and with float16 storage (printed, no bar) on the
+     12 MP log-L plane (C=1) and on a 3-channel frame, and their times in
+     turns (separable float16, tile core, tile core, separable float16;
+     three rounds); then FULL for one batch of 4 through a local copy of
+     its back-end loop on the separable float16 route, its bilateral detail
+     term taken through kernels.bilateral_fused (the same source as the
+     pipeline's bilateral_band), against process_batch: within 1 count (0
+     expected: the same function from the same kernel source), 4 launches
+     of bilateral_fused; and FULL with denoise_f16 off through process_batch
+     (the tile core's pipeline path: 4 wiener_tile_core launches) against
+     the default: no value may move by more than 1 count.
   9. the piecewise entry point at 4096x3000: load_bytes -> debayer ->
      process_rgb -> tonemap with bounds and metrics from a fused run of the
      same frame, equal to the fused output within 1 count, one launch of
-     each of FULL's four kernels; then the PPG and
+     each of FULL's three kernels; then the PPG and
      bilinear debayers and the linear and filmic tonemaps through the
      piecewise chain, card vs CPU at 1024x768 (1 count).
  10. JPEG and streaming (BASELINE config 5): the native host scan must have
@@ -75,7 +78,7 @@ Phases (any failure raises and the script exits non-zero):
      StreamingExecutor(batch 2, quality 90, keep_images=False), a warm-up
      of 2 frames and 32 timed, once with device JPEG and once with 2 host
      workers, the EMA reset between: no errors, every result FF D8, equal
-     bytes frame for frame, 34 launches of each of FULL's four kernels a
+     bytes frame for frame, 34 launches of each of FULL's three kernels a
      run; s/frame, frames/s, MB/frame, and FULL's process_batch ms/frame
      alone in the same call.  Last, the card's busy time and idle share
      (torch.profiler) of the DCT stage, the device entropy, one FULL batch
@@ -93,11 +96,22 @@ Phases (any failure raises and the script exits non-zero):
      non-neutral time and peak memory.  FULL with enable_laplacian and
      lap_clarity 0.3 (golden rcd_linear_lap's local contrast) at 4096x3000,
      3 batches of 4: ms/frame over batches 2-3, peak memory, 12 launches of
-     each of FULL's four kernels, no host wait in process_batch (CUDA sync
+     each of FULL's three kernels, no host wait in process_batch (CUDA sync
      debugging); card vs CPU at 1024x768 fused and piecewise (1 count).
+ 12. the command-line tools of tpu_darktable_torch/scripts/ on the card:
+     run_benchmark in process at its default 4096x3000 (warm-up 1, 3
+     iterations: every op's iterations/s), then the pure functions of
+     test_debayer (RCD), test_bilateral (sigma_s 2 and 3), test_wiener (rgb
+     and log_luminance, the Wiener class: the tile core) and test_laplacian
+     on a synthetic 4096x3000 frame; launch counts read around each call,
+     at least one launch each of rcd_interior, color_smooth_diffs,
+     bilateral_band, grid_blur_xyz and wiener_tile_core, finite outputs;
+     the four image tools card vs CPU at 1024x768 (RCD and the bilateral
+     term 1e-5, the Wiener class 2e-5, the Laplacian through its LAB round
+     trip one uint8 count).
 Then one JSON line with the JPEG numbers, one with the Laplacian's, one
-with the kernels, the card's name and power limit, and the result JSON as
-the last line.
+with the command-line tools', one with the kernels, the card's name and
+power limit, and the result JSON as the last line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -120,8 +134,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12 / 2
 W, H = 4096, 3000
 BATCH, N_BATCHES = 4, 3
-# FULL runs each of these once a frame and none of the other kernels.
-FULL_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'wiener_tile_core', 'bilateral_band')
+# FULL runs each of these once a frame and none of the other kernels (its
+# Wiener stage takes the separable float16 route of the default denoise_f16).
+FULL_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'bilateral_band')
 WB = (1.2, 1.0, 1.1)
 REPO = Path(__file__).resolve().parent
 
@@ -586,12 +601,16 @@ def stage_ms(dev, frame_bytes):
         return lab, torch.log(torch.clamp(lum, min=1e-4))
 
     lab, log_l = lab_in()
+    # FULL's route (denoise_f16), and the tile core it takes with denoise_f16 off
     wiener_route = lambda: wiener.wiener_denoise(log_l[..., None], s.denoise, 32, s.denoise_overlap,
-                                                 use_separable=False)[..., 0]
+                                                 spectral_dtype=torch.float16,
+                                                 storage_dtype=torch.float16)[..., 0]
+    tile_route = lambda: wiener.wiener_denoise(log_l[..., None], s.denoise, 32, s.denoise_overlap,
+                                               use_separable=False)[..., 0]
     den = wiener_route()
     lab_out = lambda: color.lab_modify_luminance(lab, torch.exp(den + 1e-4))
     dn = lab_out()
-    # the route's own steps, as ops/wiener.py:wiener_denoise runs them
+    # the tile-core route's own steps, as ops/wiener.py:wiener_denoise runs them
     k, ov = 32, s.denoise_overlap
     pad = lambda: wiener._reflect_pad(log_l[..., None], k, ov)
     xr, n_ty, n_tx = pad()
@@ -620,17 +639,18 @@ def stage_ms(dev, frame_bytes):
     tone = lambda: tonemap.aces_tonemap(bl, params, metrics)
     parts = [('decode+wb', decode), ('rcd', demosaic), ('rcd edge strips (plain, in rcd)', strips),
              ('postprocess', post),
-             ('wiener: lab in + log', lab_in), ('wiener: tile-core route', wiener_route),
+             ('wiener: lab in + log', lab_in), ('wiener: separable float16 route', wiener_route),
              ('wiener: exp + lab out', lab_out), ('bilateral (lab in/out)', bil),
-             ('adaptive aces + vibrance', tone)]
+             ('adaptive aces + vibrance', tone),
+             ('wiener: tile-core route (denoise_f16 off, not in the sum)', tile_route)]
     res = {name: cuda_ms(fn, iters=3, warmup=1) for name, fn in parts}
     log('FULL per-stage ms (one frame): '
         + ', '.join(f'{k} {v:.3f}' for k, v in res.items())
-        + f'; sum without the strips {sum(res.values()) - res[parts[2][0]]:.3f}')
+        + f'; sum without the strips {sum(res.values()) - res[parts[2][0]] - res[parts[-1][0]]:.3f}')
     route = {name: cuda_ms(fn, iters=5, warmup=1) for name, fn in (
         ('reflect pad', pad), ('slab build', build), ('kernel', core), ('overlap-add', add),
         ('weight division', divide))}
-    rest = res['wiener: tile-core route'] - sum(route.values())
+    rest = res[parts[-1][0]] - sum(route.values())
     log('wiener tile-core route ms (inside the stage above): '
         + ', '.join(f'{k} {v:.3f}' for k, v in route.items())
         + f'; the rest (checks, host code between the launches) {rest:.3f}')
@@ -729,7 +749,7 @@ def phase_general_bilateral(dev):
     log(f'general bilateral launches: {launches}')
     n = BATCH * n_batches
     want = dict.fromkeys(launches, 0)
-    want.update(rcd_interior=n, color_smooth_diffs=n, wiener_tile_core=n, grid_blur_xyz=n)
+    want.update(rcd_interior=n, color_smooth_diffs=n, grid_blur_xyz=n)
     if launches != want:
         raise AssertionError(f'general bilateral launched {launches}, expected {want}')
     if tuple(out.shape) != (BATCH, H, W, 3) or out.float().std().item() < 1.0:
@@ -761,9 +781,10 @@ def phase_general_bilateral(dev):
 # ---------------------------------------------------------------- phase 8
 
 def phase_wiener_route(dev):
-    """The pipeline's Wiener route (the tile core) against the separable
-    einsums at full width, then FULL for one batch against FULL with the
-    Wiener stage on the separable float16-storage route."""
+    """The Wiener routes at full width: the tile core against the separable
+    einsums; then FULL for one batch through process_batch (the separable
+    float16 route) against a local copy of its back end, and against FULL
+    with denoise_f16 off (the tile core)."""
     import statistics
 
     import tpu_darktable_torch as tt
@@ -808,11 +829,10 @@ def phase_wiener_route(dev):
             raise AssertionError(f'the tile-core route lost a pair on the {label}')
     del rgb, log_l
 
-    # FULL, one batch of 4, as it ran before the tile core took the Wiener
-    # stage: the back end of pipeline/image_processor.py copied here with the
-    # separable float16-storage route.  The bilateral detail term goes through
-    # kernels.bilateral_fused: one source with the pipeline's bilateral_band,
-    # so the two outputs differ by the Wiener route alone.
+    # FULL, one batch of 4: the back end of pipeline/image_processor.py copied
+    # here on the separable float16 route, its bilateral detail term through
+    # kernels.bilateral_fused (one source with the pipeline's bilateral_band),
+    # against process_batch.  The only pipeline-shaped path of bilateral_fused.
     batch = synthetic_frames(W, H, BATCH, seed=100).to(dev)
     proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
                              device=dev, white_balance=WB)
@@ -843,22 +863,49 @@ def phase_wiener_route(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    log(f'separable-route launches: {launches}')
+    log(f'local back-end copy launches: {launches}')
     if launches['bilateral_fused'] != BATCH or launches['wiener_tile_core'] != 0 \
             or launches['bilateral_band'] != 0:
-        raise AssertionError(f'the separable-route back end launched {launches}')
+        raise AssertionError(f'the local back-end copy launched {launches}')
     if out.shape != ref.shape or out.dtype != torch.uint8:
-        raise AssertionError(f'separable-route FULL output {tuple(out.shape)} {out.dtype}')
+        raise AssertionError(f'local back-end copy output {tuple(out.shape)} {out.dtype}')
     diff = (out.to(torch.int16) - ref.to(torch.int16)).abs()
+    log(f'FULL {W}x{H} batch {BATCH} (process_batch, separable float16 route, bilateral_band) '
+        f'against the local back-end copy (bilateral_fused): max |diff| {diff.max().item()} '
+        f'count(s), {(diff > 0).float().mean().item():.3e} of values differ; back end + '
+        f'tonemap {seconds / BATCH * 1e3:.2f} ms/frame')
+    if diff.max().item() > 1:
+        raise AssertionError(f'the local back-end copy differs from process_batch by '
+                             f'{diff.max().item()} counts')
+    del rgb, out
+
+    # The tile core's pipeline path: FULL with denoise_f16 off.
+    tile_proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                                  dataclasses.replace(s, denoise_f16=False), device=dev,
+                                  white_balance=WB)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tiled = tile_proc.process_batch(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tile_launches = dict(kernels.launches)
+    log(f'FULL with denoise_f16 off launches: {tile_launches}')
+    want = dict.fromkeys(tile_launches, 0)
+    want.update({k: BATCH for k in FULL_KERNELS}, wiener_tile_core=BATCH)
+    if tile_launches != want:
+        raise AssertionError(f'FULL with denoise_f16 off launched {tile_launches}, expected {want}')
+    diff = (tiled.to(torch.int16) - ref.to(torch.int16)).abs()
     over_1 = (diff > 1).float().mean().item()
-    log(f'FULL {W}x{H} batch {BATCH} (wiener_tile_core) against the same with the separable '
-        f'float16-storage einsums: max |diff| {diff.max().item()} count(s), '
+    log(f'FULL {W}x{H} batch {BATCH} with denoise_f16 off (wiener_tile_core) against the default '
+        f'(separable float16 route): max |diff| {diff.max().item()} count(s), '
         f'{(diff > 0).float().mean().item():.3e} of values differ, {over_1:.3e} by more than 1; '
-        f'separable-route back end + tonemap {seconds / BATCH * 1e3:.2f} ms/frame')
+        f'{seconds / BATCH * 1e3:.2f} ms/frame (first batch)')
     if over_1 != 0.0:
         raise AssertionError(f'{over_1} of FULL\'s values move by more than 1 count between the '
                              'Wiener routes')
-    return launches
+    return dict(bilateral_fused=launches['bilateral_fused'],
+                wiener_tile_core=tile_launches['wiener_tile_core'])
 
 
 # ---------------------------------------------------------------- phase 9
@@ -954,19 +1001,22 @@ def sync_points(fn):
     return found
 
 
-def config5_frame(seed=0):
-    """Packed12 bytes of BASELINE config 5's scene (benchmarks/baseline_configs.py
-    :186-198): three sinusoids plus noise of sigma 0.01, mosaicked and
-    packed by the port."""
-    import tpu_darktable_torch as tt
-
+def config5_scene(w, h, seed=0):
+    """BASELINE config 5's scene (benchmarks/baseline_configs.py:186-198):
+    three sinusoids plus noise of sigma 0.01, (h, w, 3) float32."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     scene = np.stack([0.35 + 0.45 * np.sin(xx / 331) * np.cos(yy / 237),
                       0.40 + 0.40 * np.cos(xx / 181 + yy / 419),
                       0.45 + 0.35 * np.sin((xx + 2 * yy) / 293)], axis=-1)
-    scene = np.clip(scene + rng.normal(0, 0.01, scene.shape), 0.0, 1.0).astype(np.float32)
-    mosaic = tt.rgb_to_bayer(torch.from_numpy(scene))[..., 0]
+    return np.clip(scene + rng.normal(0, 0.01, scene.shape), 0.0, 1.0).astype(np.float32)
+
+
+def config5_frame(seed=0):
+    """Packed12 bytes of config 5's scene, mosaicked and packed by the port."""
+    import tpu_darktable_torch as tt
+
+    mosaic = tt.rgb_to_bayer(torch.from_numpy(config5_scene(W, H, seed)))[..., 0]
     return tt.encode(mosaic.reshape(-1), tt.PackedFormat.Packed12).numpy()
 
 
@@ -1267,6 +1317,95 @@ def profile_laplacian(report, profiled):
     return report
 
 
+# ---------------------------------------------------------------- phase 12
+
+# The image tools' calls: (label, module name, arguments, output key, and
+# the card-vs-CPU tolerance in max abs).  The Laplacian tool's RGB goes
+# through LAB and back around the float16 pyramids: pow and cbrt round
+# differently on the card, and the float16 rounding turns a few of those
+# last bits into float16 steps of L (phase 11 holds the Laplacian itself bit
+# for bit on one luminance plane), so it is held to one uint8 count of its
+# [0, 1] output, the pipeline phases' bar.
+CLI_CALLS = (
+    ('test_debayer rcd', 'test_debayer', ['--algorithm', 'rcd'], 'rcd demosaic', 1e-5),
+    ('test_bilateral sigma_s 2', 'test_bilateral', ['--sigma-s', '2'], 'bilateral', 1e-5),
+    ('test_bilateral sigma_s 3', 'test_bilateral', ['--sigma-s', '3'], 'bilateral', 1e-5),
+    ('test_wiener rgb', 'test_wiener', ['--mode', 'rgb'], 'denoised', 2e-5),
+    ('test_wiener log_luminance', 'test_wiener', ['--mode', 'log_luminance'], 'denoised', 2e-5),
+    ('test_laplacian', 'test_laplacian', ['--clarity', '0.3'], 'laplacian', 1 / 255),
+)
+# at least one launch of each of these across the phase
+CLI_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'bilateral_band', 'grid_blur_xyz',
+               'wiener_tile_core')
+
+
+def phase_cli(dev):
+    """The command-line tools of tpu_darktable_torch/scripts/ on the card:
+    run_benchmark at its default size, then the image tools' pure functions
+    on a synthetic full-width frame, then those card against CPU."""
+    import importlib
+
+    from tpu_darktable_torch import kernels
+    from tpu_darktable_torch.ops.bayer import BayerPattern
+    from tpu_darktable_torch.scripts import run_benchmark
+
+    report, seen = {}, dict.fromkeys(CLI_KERNELS, 0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rates = run_benchmark.run_benchmark(None, BayerPattern.RGGB, warmup_iters=1, bench_iters=3,
+                                        size=(W, H), device=dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    report['run_benchmark'] = dict(iters_per_s=rates, launches=launches,
+                                   seconds=time.perf_counter() - t0)
+    log(f'run_benchmark {W}x{H} (warm-up 1, 3 iterations): launches {launches}')
+    for k in seen:
+        seen[k] += launches.get(k, 0)
+
+    def call(module, argv, rgb, d):
+        mod = importlib.import_module(f'tpu_darktable_torch.scripts.{module}')
+        args = mod.parser().parse_args(['synthetic.png', *argv, '--device', str(d)])
+        return mod.run(rgb, args, d)
+
+    rgb = torch.from_numpy(config5_scene(W, H, seed=1200)).to(dev)
+    for label, module, argv, key, _ in CLI_CALLS:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = call(module, argv, rgb, dev)[key]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        for k in seen:
+            seen[k] += launches.get(k, 0)
+        finite = bool(torch.isfinite(out).all())
+        report[label] = dict(ms_first_call=ms, launches=launches)
+        log(f'{label} {W}x{H}: {ms:.2f} ms (first call), launches {launches}, finite {finite}')
+        if tuple(out.shape) != (H, W, 3) or out.device.type != dev.type or not finite:
+            raise AssertionError(f'{label}: output {tuple(out.shape)} on {out.device}, '
+                                 f'finite {finite}')
+    del rgb, out
+    log(f'command-line tools launches, all calls: {seen}')
+    missing = [k for k, v in seen.items() if v < 1]
+    if missing:
+        raise AssertionError(f'the command-line tools launched no {missing}')
+    report['launches'] = seen
+
+    w, h = 1024, 768
+    small = torch.from_numpy(config5_scene(w, h, seed=1201))
+    for label, module, argv, key, tol in CLI_CALLS:
+        card = call(module, argv, small.to(dev), dev)[key].cpu()
+        d = (card - call(module, argv, small, torch.device('cpu'))[key]).abs()
+        max_d, share = d.max().item(), (d > 1e-6).float().mean().item()
+        report[f'{label} card vs cpu'] = dict(max_abs=max_d, share_above_1e_6=share)
+        log(f'{label} card vs cpu at {w}x{h}: max |diff| {max_d:.3e} (tolerance {tol:g}), '
+            f'{share:.3e} of values differ by more than 1e-6')
+        if not max_d <= tol:
+            raise AssertionError(f'{label}: card and CPU differ by {max_d} ({share} of values)')
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs one GPU',
@@ -1293,11 +1432,13 @@ def main():
     launches.update({k: v for k, v in timed(phase_denoise, dev).items()
                      if k in ('wavelet_core', 'nlm_core')})
     launches['grid_blur_xyz'] = timed(phase_general_bilateral, dev)['grid_blur_xyz']
-    launches['bilateral_fused'] = timed(phase_wiener_route, dev)['bilateral_fused']
+    # the tile core's pipeline path: FULL with denoise_f16 off (phase 8)
+    launches.update(timed(phase_wiener_route, dev))
     timed(phase_piecewise, dev)
     lap, lap_profiled = timed(phase_laplacian, dev)
     jpeg = timed(phase_jpeg, dev, smi)
     lap = timed(profile_laplacian, lap, lap_profiled)
+    cli = timed(phase_cli, dev)
     log(f'seconds by phase: {seconds}')
     for k in kern:
         k['launches'] = launches[k['name']]
@@ -1305,6 +1446,7 @@ def main():
             'bound_ms', 'bound_by', 'library_ms']
     print(json.dumps({'jpeg': jpeg}))
     print(json.dumps({'laplacian': lap}))
+    print(json.dumps({'cli': cli}))
     print(json.dumps({'kernels': [{key: k[key] for key in keys} for k in kern]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

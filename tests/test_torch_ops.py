@@ -65,6 +65,25 @@ def test_decode12_and_round_trip_bit_exact(rng, ids):
         np.testing.assert_allclose(back, vals, atol=0.5 / 4095)
 
 
+@pytest.mark.parametrize('ids', [False, True])
+def test_encode_dispatch_vs_jax(rng, ids):
+    """encode takes `dtype` and ignores it, as JAX's does; uint16 and
+    float32 input encode bit for bit as JAX's; int32 raises ValueError with
+    JAX's message."""
+    fmt = 'Packed12_IDS' if ids else 'Packed12'
+    vals = rng.integers(0, 4096, 64).astype(np.uint16)
+    floats = (vals / 4095.0).astype(np.float32)
+    for x in (vals, floats):
+        ref = np.asarray(jpacked.encode(jnp.asarray(x), jbayer.PackedFormat[fmt], dtype=None))
+        out = tpacked.encode(torch.from_numpy(x), tbayer.PackedFormat[fmt], dtype=None)
+        np.testing.assert_array_equal(out.numpy(), ref)
+    with pytest.raises(ValueError, match='Unsupported input dtype: ') as t_err:
+        tpacked.encode(torch.from_numpy(vals.astype(np.int32)), tbayer.PackedFormat[fmt])
+    with pytest.raises(ValueError, match='Unsupported input dtype: int32'):
+        jpacked.encode(jnp.asarray(vals.astype(np.int32)), jbayer.PackedFormat[fmt])
+    assert 'int32' in str(t_err.value)
+
+
 @pytest.mark.parametrize('pattern', PATTERNS)
 def test_white_balance_bit_exact(rng, pattern):
     x = rng.random((2, 10, 14)).astype(np.float32)

@@ -387,26 +387,38 @@ def test_fused_matches_piecewise(rng, extra):
     assert _counts(piecewise, _piecewise_j(jp, data)) <= 1
 
 
-@pytest.mark.parametrize('size', [(128, 96), (320, 240)])
-def test_fused_and_piecewise_share_the_tile_core_route(rng, monkeypatch, size):
-    """Both entry points send the Wiener stage through kernels/wiener_core.py,
-    once a frame, and agree within 1 count."""
+# the float32 cases keep the ids this test had before it took denoise_f16
+@pytest.mark.parametrize('size,f16', [((128, 96), False), ((320, 240), False),
+                                      ((128, 96), True), ((320, 240), True)],
+                         ids=['size0', 'size1', 'size0-denoise_f16', 'size1-denoise_f16'])
+def test_fused_and_piecewise_share_the_tile_core_route(rng, monkeypatch, size, f16):
+    """Both entry points take the Wiener route `denoise_f16` names, once a
+    frame, and agree within 1 count: off, kernels/wiener_core.py; on, the
+    separable einsums with float16 spectral and storage dtypes (no tile
+    core)."""
     from tpu_darktable_torch.ops import wiener as twiener
 
-    seen = []
-    real = twiener.wiener_tile_core
+    seen, separable = [], []
+    real, real_sep = twiener.wiener_tile_core, twiener._wiener_separable
     monkeypatch.setattr(twiener, 'wiener_tile_core',
                         lambda slabs, *a, **kw: seen.append(tuple(slabs.shape))
                         or real(slabs, *a, **kw))
-    js = _jsettings()
+    monkeypatch.setattr(twiener, '_wiener_separable',
+                        lambda *a, **kw: separable.append((kw['spectral_dtype'],
+                                                           kw['storage_dtype']))
+                        or real_sep(*a, **kw))
+    js = _jsettings(denoise_f16=f16)
     w, h = size
     data, _ = _bytes(h, w, rng, smooth=True)
     _, tp = _procs(js, size=size)
     fused = tp.process(data, 'x').numpy()
-    assert len(seen) == 1
     _, tp2 = _procs(js, size=size)
     piecewise = _piecewise_t(tp2, data).numpy()
-    assert len(seen) == 2 and seen[0] == seen[1] and seen[0][0] == 16   # C = 1, overlap 4
+    if f16:
+        assert seen == [] and separable == [(torch.float16, torch.float16)] * 2
+    else:
+        assert separable == []
+        assert len(seen) == 2 and seen[0] == seen[1] and seen[0][0] == 16   # C = 1, overlap 4
     assert _counts(fused, piecewise) <= 1
 
 
@@ -445,6 +457,19 @@ def test_piecewise_pieces_vs_jax(rng):
     unnormalized = tp.process_rgb(rgb)   # bounds=None: no normalize
     ref = jp.process_rgb(jnp.asarray(rgb.numpy()))
     np.testing.assert_allclose(unnormalized.numpy(), np.asarray(ref), atol=1e-3)
+
+
+def test_bytes_by_keyword_as_in_jax(rng):
+    """load_bytes, load_image and process name their first parameter
+    `bytes`, as JAX's do, and give JAX's results when called by keyword."""
+    jp, tp = _procs(_jsettings())
+    data, _ = _bytes(96, 128, rng, smooth=True)
+    np.testing.assert_array_equal(tp.load_bytes(bytes=data).numpy(),
+                                  np.asarray(jp.load_bytes(bytes=jnp.asarray(data))))
+    np.testing.assert_allclose(tp.load_image(bytes=data).numpy(),
+                               np.asarray(jp.load_image(bytes=jnp.asarray(data))), atol=2e-6)
+    assert _counts(tp.process(bytes=data, image_name='x').numpy(),
+                   jp.process(bytes=jnp.asarray(data), image_name='x')) <= 1
 
 
 def test_piecewise_errors_repr_and_final_size(rng):

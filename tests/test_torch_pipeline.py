@@ -2,7 +2,7 @@
 pipeline over two batches (EMA exercised), the RCD goldens, the settings
 schema, state carried across, device rules, and the port's isolation from
 JAX.  Output tolerance: 1 uint8 count; EMA state: atol 1e-5 (the metrics
-of FULL over two batches 3e-5, see there).
+of the Laplacian chains 3e-5, see there).
 """
 
 import dataclasses
@@ -55,7 +55,8 @@ def _frames(w, h, n, seed, ids=False):
 @pytest.mark.parametrize('size', [(128, 96), (320, 240)])
 def test_full_pipeline_two_batches(size):
     """FULL settings, RGGB Packed12 with WB, two batches of 2: port output
-    within 1 count of build_pipeline_fn; bounds within 1e-5, metrics 3e-5."""
+    within 1 count of build_pipeline_fn; bounds and metrics within 1e-5
+    (both on the float16 Wiener route of the default denoise_f16)."""
     w, h = size
     js = JSettings(**FULL)
     fn = jax.jit(build_pipeline_fn(js, size, td.BayerPattern.RGGB, td.PackedFormat.Packed12, True))
@@ -73,10 +74,44 @@ def test_full_pipeline_two_batches(size):
         d = np.abs(np.asarray(ref).astype(int) - out.numpy().astype(int))
         assert d.max() <= 1, (k, d.max())
         np.testing.assert_allclose(proc.bounds.numpy(), np.asarray(bounds), atol=1e-5)
-        # The JAX FULL rounds its Wiener intermediates to float16 (denoise_f16);
-        # the port's tile-core route stores nothing and does not (observed
-        # 1.03e-5 at 128x96).  The bounds are taken before the Wiener stage.
-        np.testing.assert_allclose(proc.metrics.numpy(), np.asarray(metrics), atol=3e-5)
+        np.testing.assert_allclose(proc.metrics.numpy(), np.asarray(metrics), atol=1e-5)
+
+
+# The case filed against the port's Wiener route: FULL's stages with the
+# default tone settings and bilateral 0.6, where JAX's float16 and float32
+# Wiener routes put a few pixels 42-51 counts apart (one of them maps to
+# (0, 0, 0) and the other to a colour).
+_ROUTE_CASE = dict(debayer=JDebayer.rcd, postprocess=True, enable_denoise=True,
+                   enable_bilateral=True, bilateral=0.6)
+
+
+@pytest.mark.parametrize('f16', [True, False], ids=['denoise_f16', 'float32'])
+@pytest.mark.parametrize('tone', ['adaptive_aces', 'reinhard'])
+@pytest.mark.parametrize('seed', [3, 8, 11])
+def test_wiener_route_follows_denoise_f16(seed, tone, f16):
+    """The port takes the Wiener route `denoise_f16` names, as JAX does:
+    fused (one batch of 2) and piecewise (one frame, bounds and metrics at
+    stride 8) within 1 count of the JAX ImageProcessor on the same route;
+    bounds within 1e-5."""
+    size = (160, 96)
+    js = JSettings(**_ROUTE_CASE, tone_mapping=JTone[tone], denoise_f16=f16)
+    jproc = JProcessor(size, td.BayerPattern.RGGB, td.PackedFormat.Packed12, js,
+                       white_balance=WB)
+    tproc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                              settings_from_dict(js.model_dump()), device='cpu',
+                              white_balance=WB)
+    frames = _frames(*size, 2, seed=seed)
+    ref = np.asarray(jproc.process_batch(jnp.asarray(frames))).astype(int)
+    out = tproc.process_batch(frames).numpy().astype(int)
+    assert np.abs(ref - out).max() <= 1
+    np.testing.assert_allclose(tproc.bounds.numpy(), np.asarray(jproc.bounds), atol=1e-5)
+    rgb = tproc.load_image(bytes=frames[0])
+    rgb = tproc.process_rgb(rgb, tt.compute_image_bounds([rgb], stride=8))
+    out = tproc.tonemap(rgb, tt.compute_image_metrics([rgb], stride=8)).numpy().astype(int)
+    jrgb = jproc.load_image(bytes=jnp.asarray(frames[0]))
+    jrgb = jproc.process_rgb(jrgb, td.compute_image_bounds([jrgb], stride=8))
+    ref = np.asarray(jproc.tonemap(jrgb, td.compute_image_metrics([jrgb], stride=8))).astype(int)
+    assert np.abs(ref - out).max() <= 1
 
 
 def _golden_input(size, ids):
@@ -135,9 +170,9 @@ _LAP_CHAINS = {
     # tests/test_pipeline.py:test_laplacian_in_fused_chain's chain
     'bilinear_lap': dict(enable_denoise=False, enable_bilateral=False, postprocess=False,
                          debayer=JDebayer.bilinear, enable_laplacian=True, lap_clarity=0.5),
-    # golden rcd_linear_lap's local contrast on FULL's settings; the JAX
-    # package on its float32 Wiener route, as the port always is (the
-    # float16 route: test_full_laplacian_metrics_follow_the_float32_route)
+    # golden rcd_linear_lap's local contrast on FULL's settings, on the
+    # float32 Wiener route (the float16 route:
+    # test_full_laplacian_metrics_follow_the_float32_route)
     'full_lap': dict(FULL, enable_laplacian=True, lap_clarity=0.3, denoise_f16=False),
     'bilateral_lap': dict(FULL, enable_denoise=False, enable_laplacian=True, lap_shadows=0.7,
                           lap_highlights=1.3),
@@ -184,31 +219,34 @@ def test_laplacian_in_chain_matches_jax(chain, route):
 
 
 def test_full_laplacian_metrics_follow_the_float32_route():
-    """FULL + Laplacian against the JAX package's default, which rounds its
-    Wiener intermediates to float16 (denoise_f16), and against its float32
-    route: output within 1 count of both, bounds 1e-5.  The port stores
-    nothing in its Wiener stage, so its metrics EMA sits within 3e-5 of the
-    float32 route; the clarity term boosts the float16 rounding noise, so
-    the JAX package's two routes differ by 2.7e-3 (observed, 128x96,
-    clarity 0.3), and the port sits that far from the default."""
+    """FULL + Laplacian (clarity 0.3) on each Wiener route, against the JAX
+    package on the same route: output within 1 count, bounds 1e-5.  On the
+    float32 route the metrics EMA is within 3e-5.  On the float16 route the
+    port's LAB differs from XLA's by 1 ulp at ~2% of the pixels, the float16
+    storage turns a few of those into float16-ulp steps of the Wiener
+    output, and the clarity term lifts them into the metrics' log mean
+    (observed 2.0e-4 at 128x96): there the bar is a tenth of the distance
+    between JAX's own two routes (2.7e-3), which the port on the other
+    route would not meet."""
     size = (128, 96)
     frames = _frames(*size, 2, seed=21)
     settings = dict(FULL, enable_laplacian=True, lap_clarity=0.3)
-    tproc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
-                              settings_from_dict(JSettings(**settings).model_dump()),
-                              device='cpu', white_balance=WB)
-    out = tproc.process_batch(frames).numpy().astype(int)
-    metrics = {}
+    metrics, gaps = {}, {}
     for f16 in (True, False):
-        jproc = JProcessor(size, td.BayerPattern.RGGB, td.PackedFormat.Packed12,
-                           JSettings(**settings, denoise_f16=f16), white_balance=WB)
+        js = JSettings(**settings, denoise_f16=f16)
+        jproc = JProcessor(size, td.BayerPattern.RGGB, td.PackedFormat.Packed12, js,
+                           white_balance=WB)
         ref = np.asarray(jproc.process_batch(jnp.asarray(frames))).astype(int)
+        tproc = tt.ImageProcessor(size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                                  settings_from_dict(js.model_dump()), device='cpu',
+                                  white_balance=WB)
+        out = tproc.process_batch(frames).numpy().astype(int)
         assert np.abs(ref - out).max() <= 1
         np.testing.assert_allclose(tproc.bounds.numpy(), np.asarray(jproc.bounds), atol=1e-5)
         metrics[f16] = np.asarray(jproc.metrics)
-    np.testing.assert_allclose(tproc.metrics.numpy(), metrics[False], atol=3e-5)
-    gap = np.abs(metrics[True] - metrics[False]).max()
-    assert np.abs(tproc.metrics.numpy() - metrics[True]).max() <= gap + 3e-5
+        gaps[f16] = np.abs(tproc.metrics.numpy() - metrics[f16]).max()
+    assert gaps[False] <= 3e-5
+    assert gaps[True] <= 0.1 * np.abs(metrics[True] - metrics[False]).max()
 
 
 def test_settings_schema_matches_jax():
@@ -282,12 +320,15 @@ def test_device_rules():
 
 
 def test_port_imports_without_jax():
-    """The port imports with jax and tpu_darktable blocked, and no source
-    file of it names either."""
+    """The port, its command-line tools included, imports with jax and
+    tpu_darktable blocked (and Pillow and matplotlib, which the tools
+    import only to read, write or show a file), and no source file of it
+    names jax or tpu_darktable."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['tpu_darktable'] = None\n"
+        "sys.modules['PIL'] = sys.modules['matplotlib'] = None   # absent on the card host\n"
         "import tpu_darktable_torch, tpu_darktable_torch.convert\n"
         "import tpu_darktable_torch.kernels.rcd_interior, tpu_darktable_torch.kernels._build\n"
         "import tpu_darktable_torch.kernels.color_smooth, tpu_darktable_torch.kernels.bilateral_band\n"
@@ -300,7 +341,13 @@ def test_port_imports_without_jax():
         "import tpu_darktable_torch.ops.jpeg_entropy, tpu_darktable_torch.ops.jpeg_progressive\n"
         "import tpu_darktable_torch.native, tpu_darktable_torch.pipeline.streaming\n"
         "import tpu_darktable_torch.utils.timing, tpu_darktable_torch.ops.laplacian\n"
-        "import tpu_darktable_torch.extension\n"
+        "import tpu_darktable_torch.extension, tpu_darktable_torch._paths\n"
+        "import tpu_darktable_torch.pipeline.camera_settings, tpu_darktable_torch.pipeline.util\n"
+        "import tpu_darktable_torch.scripts.util, tpu_darktable_torch.scripts.bayer_utils\n"
+        "import tpu_darktable_torch.scripts.dump_camera_settings\n"
+        "import tpu_darktable_torch.scripts.run_benchmark, tpu_darktable_torch.scripts.test_jpeg\n"
+        "import tpu_darktable_torch.scripts.test_debayer, tpu_darktable_torch.scripts.test_wiener\n"
+        "import tpu_darktable_torch.scripts.test_bilateral, tpu_darktable_torch.scripts.test_laplacian\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,

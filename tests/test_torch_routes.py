@@ -1,4 +1,4 @@
-"""The Wiener tile-core route (the pipeline's) and the fused bilateral
+"""The Wiener tile-core route (the pipeline's with denoise_f16 off) and the fused bilateral
 detail term against the JAX package, on the CPU (where the wrappers run
 their plain versions): the tile-domain route against JAX's Pallas tile core
 (interpret mode) and its stacked einsum branch; `kernels.bilateral_fused`

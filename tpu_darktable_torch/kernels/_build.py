@@ -5,8 +5,9 @@ with a plain C interface, loaded with ctypes.  Builds start together and
 run in parallel; a library is named by a hash of its source and flags, so
 an unchanged source is not rebuilt.  Nothing here runs at import time.
 
-The build directory is `build/kernels` at the root of the checkout
-(override with TD_TORCH_BUILD_DIR).
+The build directory is `build/kernels` at the root of the checkout, a
+user cache directory for an installed package (`_paths.build_root`), or
+TD_TORCH_BUILD_DIR.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from .._paths import build_root
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 # One library a source; bilateral_fused.cu serves kernels/bilateral_band.py too.
@@ -41,10 +44,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    env = os.environ.get('TD_TORCH_BUILD_DIR')
-    root = Path(env) if env else CSRC.parent.parent / 'build' / 'kernels'
-    root.mkdir(parents=True, exist_ok=True)
-    return root
+    return build_root('kernels')
 
 
 def _nvcc() -> str:

@@ -3,7 +3,8 @@ the host packed-12 decode.
 
 `bitpack.cpp` is compiled with g++ at first use into a shared library bound
 with ctypes.  It is built into `build/native/` at the root of the checkout
-(or TD_TORCH_BUILD_DIR) and named by a hash of its source and flags, so an
+(a user cache directory for an installed package, or TD_TORCH_BUILD_DIR;
+`_paths.build_root`) and named by a hash of its source and flags, so an
 unchanged source is not rebuilt.  Every entry point has a numpy version for
 a host without a compiler.  The ctypes calls release the GIL, so the scan
 runs in parallel in threads.
@@ -13,13 +14,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from .._paths import build_root
 
 SOURCE = Path(__file__).resolve().parent / 'bitpack.cpp'
 GXX_FLAGS = ['-O3', '-shared', '-fPIC', '-pthread']
@@ -30,10 +32,7 @@ _LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
-    env = os.environ.get('TD_TORCH_BUILD_DIR')
-    root = Path(env) if env else SOURCE.parents[2] / 'build' / 'native'
-    root.mkdir(parents=True, exist_ok=True)
-    return root
+    return build_root('native')
 
 
 def lib_path() -> Path:

@@ -98,11 +98,12 @@ def encode12_float(values: torch.Tensor, ids_format: bool = False,
     return _encode12_values(torch.clamp(q, 0, 4095), ids_format)
 
 
-def encode(image: torch.Tensor,
-           format_type: PackedFormat = PackedFormat.Packed12) -> torch.Tensor:
-    """Dtype-dispatching encode: uint16/int32 values or float32 in [0, 1]."""
+def encode(image: torch.Tensor, format_type: PackedFormat = PackedFormat.Packed12,
+           dtype=None) -> torch.Tensor:
+    """Dtype-dispatching encode: uint16 values or float32 in [0, 1].
+    `dtype` is accepted and ignored, as in the JAX package."""
     ids = format_type is PackedFormat.Packed12_IDS
-    if image.dtype in (torch.uint16, torch.int32):
+    if image.dtype == torch.uint16:
         return encode12_u16(image, ids_format=ids)
     if image.dtype == torch.float32:
         return encode12_float(image, ids_format=ids)

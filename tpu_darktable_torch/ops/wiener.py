@@ -19,7 +19,9 @@ reconstructed in one kernel on the card; the stacked folded-rDFT einsums,
 its plain version, on the CPU) and the reconstructed slabs are overlap-added
 as ov^2 slices.  It covers both the JAX package's `use_pallas=True` and its
 `use_separable=False` branch, which compute the same thing.  The pipeline
-and the `Wiener` class built without a storage dtype take this route.
+with `denoise_f16` off and the `Wiener` class built without a storage dtype
+take this route; the pipeline's default takes the separable route with
+float16 storage, as the JAX package's does.
 
 Frames too small for the reflect-pad fast path take the per-coset gather
 path with the same folded rDFT basis, as in the JAX package.
@@ -122,6 +124,16 @@ def _sep_bases(k: int, wf: np.ndarray, wi: np.ndarray) -> dict:
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _sep_bases_on(k: int, wf_bytes: bytes, wi_bytes: bytes, dev: torch.device) -> dict:
+    """_sep_bases as tensors on `dev`, built once per geometry and device
+    and copied through pinned memory, so that the pipeline's per-frame
+    Wiener stage does not make the host wait for the card."""
+    wf, wi = np.frombuffer(wf_bytes, np.float32), np.frombuffer(wi_bytes, np.float32)
+    return {n: (to_device(a, dev) if isinstance(a, np.ndarray) else a)
+            for n, a in _sep_bases(k, wf, wi).items()}
+
+
 def _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
                       spectral_dtype=None, storage_dtype=None):
     """Separable-DFT Wiener core on the reflect-padded (Hp, Wp, C) image."""
@@ -131,8 +143,8 @@ def _wiener_separable(xr, h, w, c, k, ov, sigmas, wf, wi, mrow, mcol,
     grid_w = (w + k + stride - 1) // stride + ov
     n_ty = -(-grid_h // ov)
     n_tx = -(-grid_w // ov)
-    bb = {n: (torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a)
-          for n, a in _sep_bases(k, wf, wi).items()}
+    bb = _sep_bases_on(k, np.asarray(wf, np.float32).tobytes(),
+                       np.asarray(wi, np.float32).tobytes(), dev)
     uc = bb['u_count']
     acc_h = (ov - 1) * stride + n_ty * k
     acc_w = (ov - 1) * stride + n_tx * k

@@ -4,7 +4,7 @@ from .camera_settings import CameraSettings, load_camera_settings_from_dir
 from .config import Debayer, ImageProcessingSettings, ToneMapper
 from .image_processor import ImageProcessor, ImageSizeMismatchError, build_pipeline_fn
 from .presets import get_preset, presets
-from .transform import ImageTransform
+from .transform import ImageTransform, transform, transformed_size
 
 __all__ = [
     'CameraSettings',
@@ -18,4 +18,6 @@ __all__ = [
     'get_preset',
     'load_camera_settings_from_dir',
     'presets',
+    'transform',
+    'transformed_size',
 ]

@@ -1,7 +1,9 @@
-"""Camera settings registry (counterpart of
-tpu_darktable/pipeline/camera_settings.py:24-106): a frozen dataclass with
-JSON round trip, and the directory of per-camera JSON files shipped in
-tpu_darktable_torch/camera_settings/."""
+"""Camera settings registry and raw file IO (counterpart of
+tpu_darktable/pipeline/camera_settings.py): a frozen dataclass with JSON
+round trip, the directory of per-camera JSON files shipped in
+tpu_darktable_torch/camera_settings/ resolved by directory name or file
+size, and the raw byte loaders, which put a file's bytes on the card unless
+the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -10,8 +12,13 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Literal
 
+import numpy as np
+import torch
+
+from .._device import resolve_device, to_device
 from ..ops.bayer import BayerPattern, PackedFormat
-from .config import ImageProcessingSettings
+from ..ops.packed import decode12
+from .config import EnumValidator, ImageProcessingSettings, checked, coerce_fields, serialize_fields
 from .transform import ImageTransform
 
 
@@ -23,11 +30,17 @@ class CameraSettings:
     image_size: tuple[int, int]
     image_processing: ImageProcessingSettings
     padding: int = 0
-    bayer_pattern: BayerPattern = BayerPattern.RGGB
-    packed_format: PackedFormat = PackedFormat.Packed12
+    bayer_pattern: BayerPattern = checked(BayerPattern.RGGB,
+                                          EnumValidator(BayerPattern, 'Bayer pattern'))
+    packed_format: PackedFormat = checked(PackedFormat.Packed12,
+                                          EnumValidator(PackedFormat, 'Packed format'))
     white_balance: tuple[float, float, float] | None = None
-    transform: ImageTransform | dict[str, ImageTransform] = ImageTransform.none
+    transform: ImageTransform | dict[str, ImageTransform] = checked(
+        ImageTransform.none, EnumValidator(ImageTransform, 'Image transform'))
     type: Literal['camera_settings'] = 'camera_settings'
+
+    def __post_init__(self):
+        coerce_fields(self)
 
     @property
     def bytes(self) -> int:
@@ -40,34 +53,24 @@ class CameraSettings:
 
     @classmethod
     def from_dict(cls, d: dict) -> 'CameraSettings':
-        tf = d.get('transform', 'none')
-        transform = ({k: ImageTransform[v] for k, v in tf.items()} if isinstance(tf, dict)
-                     else ImageTransform[tf])
         wb = d.get('white_balance')
         return cls(
             name=d['name'],
             image_size=tuple(d['image_size']),
             image_processing=ImageProcessingSettings.from_dict(d['image_processing']),
             padding=int(d.get('padding', 0)),
-            bayer_pattern=BayerPattern[d.get('bayer_pattern', 'RGGB')],
-            packed_format=PackedFormat[d.get('packed_format', 'Packed12')],
+            bayer_pattern=d.get('bayer_pattern', 'RGGB'),
+            packed_format=d.get('packed_format', 'Packed12'),
             white_balance=None if wb is None else tuple(float(v) for v in wb),
-            transform=transform,
+            transform=d.get('transform', 'none'),
         )
 
     def to_dict(self) -> dict:
-        tf = self.transform
-        return {
-            'type': self.type,
-            'name': self.name,
-            'image_size': list(self.image_size),
-            'padding': self.padding,
-            'bayer_pattern': self.bayer_pattern.name,
-            'packed_format': self.packed_format.name,
-            'white_balance': None if self.white_balance is None else list(self.white_balance),
-            'image_processing': self.image_processing.to_dict(),
-            'transform': ({k: v.name for k, v in tf.items()} if isinstance(tf, dict) else tf.name),
-        }
+        d = serialize_fields(self)
+        d.update(image_size=list(self.image_size),
+                 white_balance=None if self.white_balance is None else list(self.white_balance),
+                 image_processing=self.image_processing.to_dict())
+        return d
 
     def save_json(self, path: Path) -> None:
         Path(path).write_text(json.dumps(self.to_dict(), indent=2))
@@ -75,6 +78,34 @@ class CameraSettings:
     @classmethod
     def load_json(cls, path: Path) -> 'CameraSettings':
         return cls.from_dict(json.loads(Path(path).read_text()))
+
+
+def load_raw_bytes(filepath: Path, device=None) -> torch.Tensor:
+    """A raw file's bytes as a uint8 tensor on `device` (the card unless
+    the caller asks for the CPU)."""
+    data = np.fromfile(Path(filepath), dtype=np.uint8)
+    return to_device(torch.from_numpy(data), resolve_device(device))
+
+
+def load_raw_bytes_stripped(filepath: Path, camera_settings: CameraSettings,
+                            device=None) -> torch.Tensor:
+    """load_raw_bytes without the camera's trailing padding."""
+    raw = load_raw_bytes(filepath, device)
+    if camera_settings.padding > 0:
+        raw = raw[: -camera_settings.padding]
+    return raw
+
+
+def load_raw_bayer(filepath: Path, camera_settings: CameraSettings | None = None,
+                   device=None) -> torch.Tensor:
+    """Load and unpack a raw file to an (H, W) float32 Bayer plane; the
+    camera is resolved from the file when not given."""
+    if camera_settings is None:
+        camera_settings = settings_for_file(Path(filepath))
+    width, _height = camera_settings.image_size
+    raw = load_raw_bytes_stripped(filepath, camera_settings, device)
+    decoded = decode12(raw, output_dtype=torch.float32, format_type=camera_settings.packed_format)
+    return decoded.reshape(-1, width)
 
 
 def get_camera_settings_dir() -> Path:
@@ -90,4 +121,39 @@ def load_camera_settings_from_dir(settings_dir: Path | None = None) -> dict[str,
     return out
 
 
-__all__ = ['CameraSettings', 'get_camera_settings_dir', 'load_camera_settings_from_dir']
+def settings_for_file(file_path: Path) -> CameraSettings:
+    """Resolve camera settings by the file's directory name, then by its
+    size in bytes."""
+    file_path = Path(file_path)
+    all_settings = load_camera_settings_from_dir()
+
+    camera_name = file_path.parent.stem
+    if camera_name in all_settings:
+        return all_settings[camera_name]
+
+    file_size = file_path.stat().st_size
+    for settings in all_settings.values():
+        if settings.bytes == file_size:
+            return settings
+
+    raise ValueError(
+        f'Could not find camera settings for "{file_path}". '
+        f'Directory name "{camera_name}" not recognized and file size {file_size} bytes '
+        f'does not match any known camera. Available cameras: {list(all_settings.keys())}'
+    )
+
+
+def validate_camera_names(settings: CameraSettings, camera_names: list[str]) -> None:
+    """Check a per-camera transform map's keys against the rig's names."""
+    if isinstance(settings.transform, dict):
+        expected = set(settings.transform.keys())
+        actual = set(camera_names)
+        if expected != actual:
+            raise ValueError(
+                f'Camera names mismatch: settings expects {sorted(expected)}, got {sorted(actual)}'
+            )
+
+
+__all__ = ['CameraSettings', 'get_camera_settings_dir', 'load_camera_settings_from_dir',
+           'load_raw_bayer', 'load_raw_bytes', 'load_raw_bytes_stripped', 'settings_for_file',
+           'validate_camera_names']

@@ -125,11 +125,13 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
         eps = 1e-4
         lab, lum = _color.rgb_to_lab_with_clipped_l(rgb)  # normalize output: not clipped
         log_lum = torch.log(torch.clamp(lum, min=eps))
-        # the tile-core route (kernels/wiener_core.py); it keeps nothing between
-        # its transforms, so settings.denoise_f16 has nothing to store
+        # as in the JAX package: with denoise_f16 the separable einsums store
+        # their intermediates in float16; without, the float32 tile core
+        f16 = torch.float16 if settings.denoise_f16 else None
         den = _wiener.wiener_denoise(
             log_lum[..., None], settings.denoise, tile_size=32,
-            overlap_factor=settings.denoise_overlap, use_separable=False,
+            overlap_factor=settings.denoise_overlap, use_separable=settings.denoise_f16,
+            spectral_dtype=f16, storage_dtype=f16,
         )[..., 0]
         return _color.lab_modify_luminance(lab, torch.exp(den + eps))
 
@@ -221,8 +223,10 @@ class ImageProcessor:
             self.device, self.image_size, self.bayer_pattern,
             color_smoothing_passes=s.color_smoothing_passes, green_eq_local=False,
             green_eq_global=True, green_eq_threshold=s.green_eq_threshold)
+        f16 = torch.float16 if s.denoise_f16 else None
         self.wiener_workspace = Wiener(self.device, self.image_size,
-                                       overlap_factor=s.denoise_overlap)
+                                       overlap_factor=s.denoise_overlap,
+                                       spectral_dtype=f16, storage_dtype=f16)
 
     def __repr__(self) -> str:
         wb = self.white_balance
@@ -270,9 +274,9 @@ class ImageProcessor:
 
     # ---- piecewise API ----
 
-    def load_bytes(self, data) -> torch.Tensor:
+    def load_bytes(self, bytes) -> torch.Tensor:
         """Packed bytes of one frame -> the (H, W) float32 mosaic."""
-        data = self._as_bytes(data)
+        data = self._as_bytes(bytes)
         if data.numel() != self.expected_bytes:
             raise self._mismatch(
                 f'Image size mismatch: expected {self.expected_bytes} bytes for '
@@ -289,8 +293,8 @@ class ImageProcessor:
                 f'({width}x{height}), got {decoded.numel()} pixels.')
         return decoded.reshape(height, width)
 
-    def load_image(self, data) -> torch.Tensor:
-        return self.debayer(self.load_bytes(data))
+    def load_image(self, bytes) -> torch.Tensor:
+        return self.debayer(self.load_bytes(bytes))
 
     def debayer(self, bayer_image: torch.Tensor) -> torch.Tensor:
         """White balance, demosaic and postprocess of an (H, W) mosaic."""
@@ -366,8 +370,8 @@ class ImageProcessor:
         out = self.process_batch(batch)
         return {name: self.transform(out[i], name) for i, name in enumerate(names)}
 
-    def process(self, data, image_name: str) -> torch.Tensor:
-        return self.process_image_set({image_name: data})[image_name]
+    def process(self, bytes, image_name: str) -> torch.Tensor:
+        return self.process_image_set({image_name: bytes})[image_name]
 
 
 __all__ = ['ImageProcessor', 'ImageSizeMismatchError', 'build_pipeline_fn']

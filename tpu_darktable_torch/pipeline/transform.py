@@ -18,6 +18,28 @@ class ImageTransform(Enum):
     flip_vert = 6
     transverse = 7
 
+    def next_rotation(self) -> 'ImageTransform':
+        """The next transform in the viewer's cycle: the four rotations, then
+        the four reflections."""
+        rotation_map = {
+            ImageTransform.none: ImageTransform.rotate_90,
+            ImageTransform.rotate_90: ImageTransform.rotate_180,
+            ImageTransform.rotate_180: ImageTransform.rotate_270,
+            ImageTransform.rotate_270: ImageTransform.none,
+            ImageTransform.transpose: ImageTransform.flip_horiz,
+            ImageTransform.flip_horiz: ImageTransform.flip_vert,
+            ImageTransform.flip_vert: ImageTransform.transverse,
+            ImageTransform.transverse: ImageTransform.transpose,
+        }
+        return rotation_map.get(self, ImageTransform.rotate_90)
+
+
+def transformed_size(original_size: tuple[int, int], transform: ImageTransform) -> tuple[int, int]:
+    """(w, h) of an image of `original_size` after `transform`."""
+    if transform in {ImageTransform.rotate_90, ImageTransform.rotate_270, ImageTransform.transpose}:
+        return (original_size[1], original_size[0])
+    return original_size
+
 
 def transform(image, tf: ImageTransform, xp=torch):
     """Apply an orientation transform over the leading (H, W) axes.
@@ -47,4 +69,4 @@ def transform(image, tf: ImageTransform, xp=torch):
     raise ValueError(f'Invalid transform: {tf}')
 
 
-__all__ = ['ImageTransform', 'transform']
+__all__ = ['ImageTransform', 'transform', 'transformed_size']
