@@ -109,9 +109,33 @@ Phases (any failure raises and the script exits non-zero):
      the four image tools card vs CPU at 1024x768 (RCD and the bilateral
      term 1e-5, the Wiener class 2e-5, the Laplacian through its LAB round
      trip one uint8 count).
+ 13. the sharded programs of parallel/ on meshes of the card repeated: the
+     beetroot rig (12 cameras, 2472x2062 Packed12_IDS, its per-camera
+     rotations) through ImageProcessor(mesh=make_mesh([cuda] * 4)) against
+     the unsharded processor (bit for bit expected, 1 count at most, EMA
+     state within the test bars); build_spatial_pipeline_fn on one FULL
+     frame of artichoke's settings at 4096x3000 on 3 row bands (band 1000,
+     halo 64) and build_grid_pipeline_fn on 2 frames over a (camera 2,
+     band 3) mesh, each against build_pipeline_fn(..., rcd_strict_alias=
+     False): 1 count, bounds atol 1e-6, metrics rtol 1e-5 atol 1e-6.  Each
+     launches rcd_interior, color_smooth_diffs and bilateral_band once a
+     band block of a frame (launch counts zeroed just before its first
+     call), makes the host wait for the card nowhere (CUDA sync
+     debugging), and is timed against its unsharded program by CUDA
+     events.  With more than one card, the 3 bands also run over distinct
+     cards (1 count).
+ 14. the viewer's controller (scripts/view_raw/pipeline_ui.py) on the card
+     with matplotlib and Pillow blocked: a synthetic 4096x3000 frame in a
+     temporary artichoke/ directory (the camera found by the directory
+     name) through process_current, update_setting('tone_gamma', 2.0),
+     apply_preset('reinhard'), rotate (the frame turns) and reset, with at
+     least one launch of each of FULL's three kernels; encode_jpeg_bytes on
+     the card gives FF D8 .. FF D9; the controller on the card against the
+     same on the CPU at 1024x768 (1 count).
 Then one JSON line with the JPEG numbers, one with the Laplacian's, one
-with the command-line tools', one with the kernels, the card's name and
-power limit, and the result JSON as the last line.
+with the command-line tools', one with the sharded programs' and the
+viewer's, one with the kernels, the card's name and power limit, and the
+result JSON as the last line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -175,8 +199,9 @@ def full_settings():
         light_adapt=0.8, vibrance=0.5)
 
 
-def synthetic_frames(w, h, n, seed):
-    """Packed12 bytes of smooth-plus-noise mosaics, encoded by the port."""
+def synthetic_frames(w, h, n, seed, ids=False):
+    """Packed12 (or Packed12_IDS) bytes of smooth-plus-noise mosaics,
+    encoded by the port."""
     from tpu_darktable_torch.ops.packed import encode12_float
 
     rng = np.random.default_rng(seed)
@@ -185,7 +210,7 @@ def synthetic_frames(w, h, n, seed):
     for i in range(n):
         base = 0.35 + 0.3 * np.sin(xx / (37.0 + 5 * i)) * np.cos(yy / 53.0)
         m = np.clip(base + rng.normal(0, 0.03, (h, w)), 0, 1).astype(np.float32)
-        out.append(encode12_float(torch.from_numpy(m.reshape(-1))))
+        out.append(encode12_float(torch.from_numpy(m.reshape(-1)), ids_format=ids))
     return torch.stack(out)
 
 
@@ -1406,6 +1431,191 @@ def phase_cli(dev):
     return report
 
 
+# ---------------------------------------------------------------- phase 13
+
+def sharded_case(label, fn, ref_fn, frames, blocks, report):
+    """Run a sharded program and then its unsharded reference, each from its
+    first call; check the launches (one of each of FULL's kernels a band
+    block of a frame), 1 uint8 count and the EMA state against the test
+    bars (bounds atol 1e-6; metrics rtol 1e-5, atol 1e-6), and that no call
+    makes the host wait for the card; time both by CUDA events."""
+    from tpu_darktable_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, bounds, metrics = fn()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    ref, ref_bounds, ref_metrics = ref_fn()
+    d = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max().item())
+    db = (bounds - ref_bounds).abs().max().item()
+    dm = (metrics - ref_metrics).abs().max().item()
+    metrics_ok = bool(((metrics - ref_metrics).abs() <= 1e-6 + 1e-5 * ref_metrics.abs()).all())
+    waits = sync_points(fn)
+    ms = cuda_ms(fn, iters=3, warmup=1)
+    ref_ms = cuda_ms(ref_fn, iters=3, warmup=1)
+    report[label] = dict(max_count_diff=d, share_differing=(out != ref).float().mean().item(),
+                         bounds_max_abs=db, metrics_max_abs=dm, launches=launches,
+                         host_waits=waits, ms_per_frame=ms / frames,
+                         unsharded_ms_per_frame=ref_ms / frames,
+                         bit_equal=d == 0 and db == 0 and dm == 0)
+    log(f'{label}: max |diff| {d} count(s) ({report[label]["share_differing"]:.2e} of values), '
+        f'bounds {db:.3e}, metrics {dm:.3e} from the unsharded program; launches {launches}; '
+        f'host waits {waits}; {ms / frames:.2f} ms/frame against {ref_ms / frames:.2f} unsharded')
+    if d > 1 or db > 1e-6 or not metrics_ok:
+        raise AssertionError(f'{label}: {d} counts, bounds {db}, metrics {dm} from the unsharded '
+                             'program')
+    if waits:
+        raise AssertionError(f'{label} made the host wait for the card: {waits}')
+    if any(launches.get(k, 0) != frames * blocks for k in FULL_KERNELS):
+        raise AssertionError(f'{label} launched {launches}, not {frames * blocks} of each of '
+                             f'{FULL_KERNELS}')
+
+
+def phase_sharded(dev):
+    """parallel/ on the card, over meshes of the one card repeated: the
+    12-camera rig batch-sharded 4 ways through ImageProcessor(mesh=...), one
+    FULL frame on 3 row bands, and 2 FULL frames on a (camera 2, band 3)
+    grid, each against the unsharded program in the same call."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import parallel
+    from tpu_darktable_torch.pipeline.camera_settings import load_camera_settings_from_dir
+
+    report = {}
+    cams = load_camera_settings_from_dir()
+    rig = cams['beetroot']
+    w, h = rig.image_size
+    names = list(rig.transform)
+    frames = synthetic_frames(w, h, len(names), seed=1300, ids=True).to(dev)
+    image_set = dict(zip(names, frames))
+    mk = lambda mesh: tt.ImageProcessor(rig.image_size, rig.bayer_pattern, rig.packed_format,
+                                        rig.image_processing, device=dev,
+                                        white_balance=rig.white_balance,
+                                        transforms=rig.transform, padding=rig.padding, mesh=mesh)
+    mesh = parallel.make_mesh([dev] * 4)
+    sharded, single = mk(mesh), mk(None)
+    run = lambda p: (torch.stack(list(p.process_image_set(image_set).values())), p.bounds,
+                     p.metrics)
+    label = f'beetroot rig {w}x{h} Packed12_IDS, 12 cameras batch-sharded over {mesh.size} shards'
+    sharded_case(label, lambda: run(sharded), lambda: run(single), len(names), 1, report)
+    out = sharded.process_image_set(image_set)
+    if tuple(out['cam1'].shape) != (w, h, 3) or tuple(out['cam7'].shape) != (w, h, 3):
+        raise AssertionError('the rig\'s per-camera rotations were not applied')
+
+    art = cams['artichoke']
+    s = art.image_processing
+    ref_fn = tt.build_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format, True,
+                                  rcd_strict_alias=False)
+    f32 = dict(dtype=torch.float32, device=dev)
+    state0 = (torch.tensor(WB, **f32), torch.zeros(2, **f32), torch.zeros(5, **f32),
+              torch.ones((), **f32))
+    batch = synthetic_frames(W, H, 2, seed=1310).to(dev)
+
+    bands = parallel.make_mesh([dev] * 3)
+    spatial = parallel.build_spatial_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format,
+                                                 True, bands, halo=64)
+    sharded_case(f'FULL {W}x{H} on {bands.size} row bands (band {H // 3}, halo 64)',
+                 lambda: spatial(batch[0], *state0),
+                 lambda: (lambda o, b, m: (o[0], b, m))(*ref_fn(batch[:1], *state0)), 1, 3,
+                 report)
+
+    grid_mesh = parallel.make_grid_mesh(2, 3, [dev] * 6)
+    grid = parallel.build_grid_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format, True,
+                                           grid_mesh, halo=64)
+    sharded_case(f'FULL {W}x{H} batch 2 on a (camera 2, band 3) grid',
+                 lambda: grid(batch, *state0), lambda: ref_fn(batch, *state0), 2, 3, report)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        spread = parallel.make_mesh([torch.device('cuda', i % n_cards) for i in range(3)])
+        over = parallel.build_spatial_pipeline_fn(s, (W, H), art.bayer_pattern,
+                                                  art.packed_format, True, spread, halo=64)
+        out = over(batch[0], *state0)[0]
+        d = int((out.to(torch.int16) - ref_fn(batch[:1], *state0)[0][0].to(torch.int16))
+                .abs().max().item())
+        report[f'FULL on 3 bands over {n_cards} cards'] = dict(max_count_diff=d)
+        log(f'FULL on 3 bands over {n_cards} cards: max |diff| {d} count(s)')
+        if d > 1:
+            raise AssertionError(f'the bands over {n_cards} cards differ by {d} counts')
+    else:
+        log('one card: the bands over distinct cards did not run')
+    return report
+
+
+# ---------------------------------------------------------------- phase 14
+
+def phase_viewer(dev):
+    """The viewer's controller (scripts/view_raw/pipeline_ui.py) on the card,
+    headless and with matplotlib and Pillow blocked, at 4096x3000, then
+    card against CPU at 1024x768."""
+    import tempfile
+
+    blocked = {m: sys.modules.get(m) for m in ('matplotlib', 'PIL')}
+    sys.modules.update(dict.fromkeys(blocked))
+    try:
+        from tpu_darktable_torch import kernels
+        from tpu_darktable_torch.pipeline.camera_settings import settings_for_file
+        from tpu_darktable_torch.scripts.view_raw.jpeg_utils import encode_jpeg_bytes
+        from tpu_darktable_torch.scripts.view_raw.pipeline_ui import PipelineController
+
+        report = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            cam_dir = Path(tmp) / 'artichoke'
+            cam_dir.mkdir()
+            path = cam_dir / 'frame0.raw'
+            path.write_bytes(synthetic_frames(W, H, 1, seed=1400)[0].numpy().tobytes())
+            cams = settings_for_file(path)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            c = PipelineController(cams, [path], device=dev)
+            times, shapes = {}, {}
+            for step, action in (('process_current', None),
+                                 ("update_setting('tone_gamma', 2.0)",
+                                  lambda: c.update_setting('tone_gamma', 2.0)),
+                                 ("apply_preset('reinhard')", lambda: c.apply_preset('reinhard')),
+                                 ('rotate', c.rotate), ('reset', c.reset)):
+                if action is not None:
+                    action()
+                t0 = time.perf_counter()
+                img = c.process_current()   # ends in the copy to the host
+                times[step] = (time.perf_counter() - t0) * 1e3
+                shapes[step] = img.shape
+            if shapes['rotate'] != shapes["apply_preset('reinhard')"][1::-1] + (3,):
+                raise AssertionError(f'rotate did not turn the frame: {shapes}')
+            launches = {k: v for k, v in kernels.launches.items() if v}
+            data = encode_jpeg_bytes(img, quality=90, device=dev)
+            log(f'viewer controller {cams.name} {W}x{H} on the card: ms of process_current after '
+                f'each step {({k: round(v, 2) for k, v in times.items()})}; shapes {shapes}; '
+                f'launches {launches}; '
+                f'JPEG {len(data)} bytes, {data[:2].hex()}..{data[-2:].hex()}')
+            missing = [k for k in FULL_KERNELS if not launches.get(k)]
+            if missing or img.dtype != np.uint8 or img.std() < 1.0:
+                raise AssertionError(f'the viewer launched no {missing}, or its frame is flat')
+            if data[:2] != b'\xff\xd8' or data[-2:] != b'\xff\xd9':
+                raise AssertionError('encode_jpeg_bytes gave no JFIF stream')
+            report.update(ms_process_current=times, shapes=shapes, launches=launches,
+                          jpeg_bytes=len(data))
+
+            small = dataclasses.replace(cams, image_size=(1024, 768))
+            path = cam_dir / 'small.raw'
+            path.write_bytes(synthetic_frames(1024, 768, 1, seed=1401)[0].numpy().tobytes())
+            outs = [PipelineController(small, [path], device=d).process_current().astype(int)
+                    for d in (dev, torch.device('cpu'))]
+            d = int(np.abs(outs[0] - outs[1]).max())
+            report['card_vs_cpu_1024x768'] = d
+            log(f'viewer controller card vs cpu at 1024x768: max |diff| {d} count(s), '
+                f'{(outs[0] != outs[1]).mean():.2e} of values differ')
+            if d > 1:
+                raise AssertionError(f'the viewer: card and CPU differ by {d} counts')
+        return report
+    finally:
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this script needs one GPU',
@@ -1439,6 +1649,8 @@ def main():
     jpeg = timed(phase_jpeg, dev, smi)
     lap = timed(profile_laplacian, lap, lap_profiled)
     cli = timed(phase_cli, dev)
+    sharded = timed(phase_sharded, dev)
+    viewer = timed(phase_viewer, dev)
     log(f'seconds by phase: {seconds}')
     for k in kern:
         k['launches'] = launches[k['name']]
@@ -1447,6 +1659,7 @@ def main():
     print(json.dumps({'jpeg': jpeg}))
     print(json.dumps({'laplacian': lap}))
     print(json.dumps({'cli': cli}))
+    print(json.dumps({'sharded': sharded, 'viewer': viewer}))
     print(json.dumps({'kernels': [{key: k[key] for key in keys} for k in kern]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

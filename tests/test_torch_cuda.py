@@ -291,3 +291,81 @@ def test_dual_demosaic_on_card(dev, pattern, h, w):
     assert kernels.launches['rcd_interior'] == (1 if min(h, w) >= 96 else 0)
     cpu = dual_demosaic(x, BayerPattern[pattern], threshold=0.2, wb=(1.8, 1.0, 1.4))
     assert (card.cpu() - cpu).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['aces', 'adaptive_aces', 'reinhard', 'linear', 'filmic'])
+def test_tonemaps_make_no_host_wait(dev, kind):
+    """No tonemap makes the host wait for the card (a constant made on the
+    card from a Python number would: plain ACES' exposure, filmic's white
+    point)."""
+    from tpu_darktable_torch.ops import tonemap
+
+    rgb = _rand(41, (64, 96, 3), dev)
+    metrics = tonemap.compute_image_metrics([rgb])
+    params = tonemap.TonemapParameters(gamma=1.5, intensity=2.0, light_adapt=0.8, vibrance=0.5)
+    fn = {'aces': lambda: tonemap.aces_tonemap(rgb, params),
+          'adaptive_aces': lambda: tonemap.aces_tonemap(rgb, params, metrics),
+          'reinhard': lambda: tonemap.reinhard_tonemap(rgb, metrics, params),
+          'linear': lambda: tonemap.linear_tonemap(rgb, metrics, params),
+          'filmic': lambda: tonemap.filmic_tonemap(rgb, params, metrics)}[kind]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert torch.equal(out.cpu(), fn().cpu())
+
+
+def _full_frames(dev, w, h, n):
+    from tpu_darktable_torch.ops.packed import encode12_float
+
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return torch.stack([encode12_float(torch.from_numpy(np.clip(
+        0.4 + 0.3 * np.sin(xx / (9.0 + i)) * np.cos(yy / 7.0) + rng.normal(0, 0.04, (h, w)),
+        0, 1).astype(np.float32).reshape(-1))) for i in range(n)]).to(dev)
+
+
+@pytest.mark.cuda
+def test_sharded_programs_on_card(dev):
+    """parallel/ on a mesh of the one card repeated: batch sharding bit for
+    bit with the unsharded program, 3 row bands and a (2, 3) grid within 1
+    count of it (strict_alias off), each launching FULL's three kernels once
+    a band block of a frame."""
+    from tpu_darktable_torch import parallel
+    from tpu_darktable_torch.pipeline.config import Debayer, ImageProcessingSettings, ToneMapper
+    from tpu_darktable_torch.pipeline.image_processor import build_pipeline_fn
+    from tpu_darktable_torch.ops.bayer import PackedFormat
+
+    w, h = 256, 192   # 3 bands of 64 rows, blocks of 192
+    s = ImageProcessingSettings(debayer=Debayer.rcd, postprocess=True, enable_denoise=True,
+                                enable_bilateral=True, tone_mapping=ToneMapper.adaptive_aces)
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = (torch.tensor([1.2, 1.0, 1.1], **f32), torch.zeros(2, **f32), torch.zeros(5, **f32),
+             torch.ones((), **f32))
+    frames = _full_frames(dev, w, h, 4)
+    args = (s, (w, h), BayerPattern.RGGB, PackedFormat.Packed12, True)
+
+    fn = build_pipeline_fn(*args)
+    sharded = parallel.sharded_pipeline(fn, parallel.make_mesh([dev] * 4))
+    for a, b in zip(sharded(frames, *state), fn(frames, *state)):
+        assert torch.equal(a, b)
+
+    unsharded = build_pipeline_fn(*args, rcd_strict_alias=False)
+    cases = (
+        (parallel.build_spatial_pipeline_fn(*args, parallel.make_mesh([dev] * 3), halo=64),
+         frames[0], 1),
+        (parallel.build_grid_pipeline_fn(*args, parallel.make_grid_mesh(2, 3, [dev] * 6),
+                                         halo=64), frames[:2], 2),
+    )
+    for program, data, n_frames in cases:
+        want, want_bounds, want_metrics = unsharded(data.reshape(n_frames, -1), *state)
+        kernels.reset_launches()
+        out, bounds, metrics = program(data, *state)
+        assert all(kernels.launches[k] == 3 * n_frames
+                   for k in ('rcd_interior', 'color_smooth_diffs', 'bilateral_band'))
+        assert (out.int() - want.reshape(out.shape).int()).abs().max().item() <= 1
+        assert (bounds - want_bounds).abs().max().item() <= 1e-6
+        assert torch.allclose(metrics, want_metrics, rtol=1e-5, atol=1e-6)

@@ -145,6 +145,29 @@ def test_color_smoothing_bit_exact_vs_per_pass(rng, n_passes):
     np.testing.assert_array_equal(out, ref)
 
 
+@pytest.mark.parametrize('n_passes', [1, 3])
+def test_color_smoothing_pass_matches_jax(rng, n_passes):
+    """N calls of color_smoothing_pass equal N calls of JAX's bit for bit,
+    and equal color_smoothing(rgb, N): the kernel renews its zero fill every
+    pass.  Negative inputs included."""
+    rgb = (-0.2 + 1.2 * rng.random((40, 52, 3))).astype(np.float32)
+    j, t = jnp.asarray(rgb), _t(rgb)
+    for _ in range(n_passes):
+        j, t = jpost.color_smoothing_pass(j), tpost.color_smoothing_pass(t)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    assert torch.equal(t, tpost.color_smoothing(_t(rgb), n_passes))
+
+
+def test_postprocess_exports_median9(rng):
+    """median9 is importable from ops.postprocess, as in the JAX package, and
+    is the port's one median network; the modules' __all__ agree."""
+    assert tpost.median9 is tmedian9
+    planes = [rng.normal(size=(5, 6)).astype(np.float32) for _ in range(9)]
+    np.testing.assert_array_equal(tpost.median9([_t(p) for p in planes]).numpy(),
+                                  np.asarray(jpost.median9([jnp.asarray(p) for p in planes])))
+    assert tpost.__all__ == jpost.__all__
+
+
 @pytest.mark.parametrize('pattern', PATTERNS)
 def test_postprocess_green_eq_global(rng, pattern):
     """3 smoothing passes + global green eq; the ratio is a sum, summed in

@@ -319,11 +319,36 @@ def test_device_rules():
         proc.process_batch(np.zeros((1, 100), np.uint8))
 
 
+def test_rcd_strict_alias_flag_matches_jax():
+    """build_pipeline_fn(rcd_strict_alias=False), the sharded programs'
+    reference, against JAX's with the same flag on the small FULL case:
+    1 count, EMA state 1e-5; it differs from the strict program."""
+    size = (128, 96)
+    js = JSettings(**FULL)
+    frames = _frames(*size, 2, seed=21)
+    ref, jb, jm = jax.jit(build_pipeline_fn(js, size, td.BayerPattern.RGGB,
+                                            td.PackedFormat.Packed12, True,
+                                            rcd_strict_alias=False))(
+        jnp.asarray(frames), jnp.asarray(WB, jnp.float32), jnp.zeros(2, jnp.float32),
+        jnp.zeros(5, jnp.float32), jnp.float32(1.0))
+    state = (torch.tensor(WB), torch.zeros(2), torch.zeros(5), torch.tensor(1.0))
+    ts = settings_from_dict(js.model_dump())
+    out, tb, tm = tt.build_pipeline_fn(ts, size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                                       True, rcd_strict_alias=False)(torch.from_numpy(frames),
+                                                                     *state)
+    assert np.abs(out.numpy().astype(int) - np.asarray(ref).astype(int)).max() <= 1
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-5)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-5)
+    strict = tt.build_pipeline_fn(ts, size, tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                                  True)(torch.from_numpy(frames), *state)[0]
+    assert not torch.equal(strict, out)
+
+
 def test_port_imports_without_jax():
-    """The port, its command-line tools included, imports with jax and
-    tpu_darktable blocked (and Pillow and matplotlib, which the tools
-    import only to read, write or show a file), and no source file of it
-    names jax or tpu_darktable."""
+    """The port, its command-line tools, parallel/ and the viewer included,
+    imports with jax and tpu_darktable blocked (and Pillow and matplotlib,
+    which the tools and the viewer's windows import only to read, write or
+    show a file), and no source file of it names jax or tpu_darktable."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -348,6 +373,15 @@ def test_port_imports_without_jax():
         "import tpu_darktable_torch.scripts.run_benchmark, tpu_darktable_torch.scripts.test_jpeg\n"
         "import tpu_darktable_torch.scripts.test_debayer, tpu_darktable_torch.scripts.test_wiener\n"
         "import tpu_darktable_torch.scripts.test_bilateral, tpu_darktable_torch.scripts.test_laplacian\n"
+        "import tpu_darktable_torch.parallel, tpu_darktable_torch.parallel.spatial_pipeline\n"
+        "import tpu_darktable_torch.scripts.view_raw.main, tpu_darktable_torch.scripts.view_raw.ui\n"
+        "import tpu_darktable_torch.scripts.view_raw.pipeline_ui\n"
+        "import tpu_darktable_torch.scripts.view_raw.jpeg_utils\n"
+        "import tpu_darktable_torch.scripts.view_raw.histogram_ui\n"
+        "import tpu_darktable_torch.scripts.view_raw.histogram_window\n"
+        "import tpu_darktable_torch.scripts.view_raw.jpeg_preview_window\n"
+        "import tpu_darktable_torch.scripts.view_raw.histogram_display\n"
+        "import tpu_darktable_torch.scripts.view_raw.ui_builder\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True, text=True,

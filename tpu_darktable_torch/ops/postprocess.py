@@ -1,5 +1,5 @@
 """Demosaic postprocess: colour smoothing + global and local green
-equilibration (counterpart of tpu_darktable/ops/postprocess.py:55-171).
+equilibration (counterpart of tpu_darktable/ops/postprocess.py:26-171).
 
 Colour smoothing runs on the two (C - G) difference planes through
 kernels/color_smooth.py (the hand kernel on the card, its plain version on
@@ -12,7 +12,7 @@ import torch
 
 from ..kernels.color_smooth import color_smooth_diffs
 from .bayer import BayerPattern
-from ._stencil import Shifter, row_col_iota, site_masks
+from ._stencil import Shifter, median9, row_col_iota, site_masks  # noqa: F401 (re-export)
 
 _F32 = torch.float32
 
@@ -33,26 +33,44 @@ def color_smoothing(rgb: torch.Tensor, n_passes: int) -> torch.Tensor:
     return torch.stack((d_out[0] + gc, gc, d_out[1] + gc), dim=-1)
 
 
-def green_eq_global(rgb: torch.Tensor, pattern: BayerPattern) -> torch.Tensor:
-    """Scale G at green1 (even-row) sites by sum(G2)/sum(G1), sums over the
-    even-cropped image."""
-    rgb = rgb.to(_F32)
+def color_smoothing_pass(rgb: torch.Tensor) -> torch.Tensor:
+    """One zero-fill 3x3 median pass on R-G and B-G, G preserved.  The
+    kernel renews its zero fill every pass, so N calls equal
+    color_smoothing(rgb, N) bit for bit."""
+    return color_smoothing(rgb, 1)
+
+
+def green_eq_sums(rgb: torch.Tensor, pattern: BayerPattern, rows_in=None):
+    """(sum of G at green1 sites, sum at green2 sites) over the even-cropped
+    image, or over the rows where the (H, 1) bool `rows_in` holds."""
     h, w = rgb.shape[:2]
     g = rgb[..., 1]
     masks = site_masks(h, w, pattern, rgb.device)
     rows, cols = row_col_iota(h, w, rgb.device)
-    inimage = (cols < 2 * (w // 2)) & (rows < 2 * (h // 2))
+    inimage = (cols < 2 * (w // 2)) & (rows < 2 * (h // 2)) if rows_in is None else rows_in
     g1 = masks['g'] & ((rows & 1) == 0) & inimage
     g2 = masks['g'] & ((rows & 1) == 1) & inimage
+    return torch.sum(torch.where(g1, g, 0.0)), torch.sum(torch.where(g2, g, 0.0))
 
-    sum1 = torch.sum(torch.where(g1, g, 0.0))
-    sum2 = torch.sum(torch.where(g2, g, 0.0))
+
+def green_eq_apply(rgb: torch.Tensor, pattern: BayerPattern, sum1, sum2) -> torch.Tensor:
+    """Scale G at green1 sites by sum2 / sum1 (1 where either is 0)."""
+    h, w = rgb.shape[:2]
+    g = rgb[..., 1]
+    masks = site_masks(h, w, pattern, rgb.device)
+    rows, _ = row_col_iota(h, w, rgb.device)
     ratio = torch.where((sum1 > 0.0) & (sum2 > 0.0), sum2 / torch.clamp(sum1, min=1e-30),
                         torch.ones((), dtype=_F32, device=rgb.device))
-
     is_green1 = masks['g'] & ((rows & 1) == 0)
     new_g = torch.where(is_green1, g * ratio, g)
     return torch.clamp(torch.stack((rgb[..., 0], new_g, rgb[..., 2]), dim=-1), min=0.0)
+
+
+def green_eq_global(rgb: torch.Tensor, pattern: BayerPattern) -> torch.Tensor:
+    """Scale G at green1 (even-row) sites by sum(G2)/sum(G1), sums over the
+    even-cropped image."""
+    rgb = rgb.to(_F32)
+    return green_eq_apply(rgb, pattern, *green_eq_sums(rgb, pattern))
 
 
 def green_eq_local(rgb: torch.Tensor, pattern: BayerPattern, threshold: float) -> torch.Tensor:
@@ -108,4 +126,7 @@ def postprocess(rgb: torch.Tensor, pattern: BayerPattern, color_smoothing_passes
     return out
 
 
-__all__ = ['color_smoothing', 'green_eq_global', 'green_eq_local', 'postprocess']
+# median9 (ops/_stencil.py) is importable from here, as in the JAX package;
+# the sharded pipeline also takes green_eq_sums / green_eq_apply.
+__all__ = ['color_smoothing', 'color_smoothing_pass', 'green_eq_global', 'green_eq_local',
+           'postprocess']

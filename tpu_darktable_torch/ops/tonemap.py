@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._device import to_device
+from .._device import scalar_on, to_device
 from .._validate import check_channels_last
 from .color import color_transform_3x3, modify_vibrance, rgb_to_gray
 
@@ -141,8 +141,9 @@ def _exposed(rgb: torch.Tensor, params: TonemapParameters, metrics) -> torch.Ten
     """The curve's input: rgb * 2^intensity, or rgb over the per-pixel
     adaptation value when metrics are given."""
     if metrics is None:
-        exposure = torch.pow(torch.tensor(2.0, device=rgb.device),
-                             torch.tensor(params.intensity, dtype=torch.float32, device=rgb.device))
+        # constants through pinned memory: a tensor made on the card from a
+        # Python number makes the host wait for it
+        exposure = torch.pow(scalar_on(2.0, rgb.device), scalar_on(params.intensity, rgb.device))
         return rgb * exposure
     return rgb / _compute_adaptation(metrics, rgb, params.light_adapt, params.intensity)
 
@@ -167,7 +168,7 @@ def _filmic_curve(x: torch.Tensor) -> torch.Tensor:
     def hable(v):
         return ((v * (a * v + c * b) + d * e) / (v * (a * v + b) + d * f)) - e / f
 
-    return hable(x) / hable(torch.tensor(11.2, dtype=torch.float32, device=x.device))
+    return hable(x) / hable(scalar_on(11.2, x.device))
 
 
 def filmic_tonemap(image: torch.Tensor, params: TonemapParameters,

@@ -10,12 +10,19 @@ batch-global bounds EMA, one frame at a time so that live memory stays one
 frame deep.  The EMA state (bounds (2,), metrics (5,)) stays on the device
 between batches: there is no host sync on the path.
 
+The fused program's stages (PipelineStages, `fn.stages`) are what the
+sharded programs of parallel/ run on each shard, so they compute what it
+computes; `ImageProcessor(mesh=...)` splits its batches over a mesh.
+
 The piecewise methods (load_bytes / debayer / process_rgb / tonemap) run
 the same stages one call at a time through the per-op workspace classes,
 with the caller carrying bounds and metrics; the viewer drives them.
 """
 
 from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -74,36 +81,77 @@ def _tonemap_dispatch(settings: ImageProcessingSettings, rgb, metrics):
     raise AssertionError(f'Invalid tone mapping: {settings.tone_mapping}')
 
 
+@dataclass(frozen=True)
+class PipelineStages:
+    """The stages of one build_pipeline_fn result, which its fused program
+    runs and the sharded programs of parallel/ reuse, so that those cannot
+    drift from it.  Per frame: `decode` (packed rows, wb) -> mosaic with
+    white balance; `demosaic`; `front` = both, then postprocess, over a
+    (B, n_bytes) batch -> (rgb (B, H, W, 3), samples); `sample` = the
+    stride-8 planes of a (B, H, W, 3) batch, stacked; `back` (rgb, samples,
+    bounds) = normalize, Wiener, bilateral, Laplacian -> (rgb, samples);
+    `denoise`, `bilateral` its per-frame luminance stages, `lab_and_lum`
+    their LAB split and `laplacian` (L -> L') the local Laplacian's
+    luminance map; `tonemap` (rgb, metrics) -> uint8."""
+
+    decode: Callable
+    demosaic: Callable
+    front: Callable
+    sample: Callable
+    back: Callable
+    denoise: Callable
+    bilateral: Callable
+    lab_and_lum: Callable
+    laplacian: Callable
+    tonemap: Callable
+
+
+def ema_bounds(samples, bounds_in, alpha):
+    """The bounds EMA from the stacked sample planes of a batch."""
+    return lerp(bounds_in, _tonemap.compute_image_bounds(samples, stride=1), alpha)
+
+
+def ema_metrics(samples, metrics_in, alpha):
+    """The metrics EMA from the stacked sample planes of a batch."""
+    return lerp(metrics_in, _tonemap.compute_image_metrics(samples, stride=1), alpha)
+
+
 def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, int],
                       bayer_pattern: BayerPattern, packed_format: PackedFormat,
-                      has_white_balance: bool):
+                      has_white_balance: bool, rcd_strict_alias: bool = True):
     """Build the batched pipeline.
 
     Returns fn(bytes_batch (B, n_bytes) uint8, wb (3,), bounds (2,),
     metrics (5,), alpha 0-d) -> (uint8 (B, H, W, 3), bounds', metrics'),
-    all tensors on one device.
+    all tensors on one device; its stages are `fn.stages`
+    (PipelineStages).  `rcd_strict_alias=False` drops RCD's half-grid stale
+    reads, which makes the demosaic exact on row bands (parallel/).
     """
     width, height = image_size
     ids = packed_format is PackedFormat.Packed12_IDS
+    has_back = settings.enable_denoise or settings.enable_bilateral or settings.enable_laplacian
 
-    def _sample_plane(rgb):
-        return rgb[::8, ::8]
+    def sample(rgb):
+        return torch.stack([rgb[i, ::8, ::8] for i in range(rgb.shape[0])])
 
-    def _demosaic_one(bayer):
+    def decode(frame_rows, wb_gains):
+        bayer = _packed.decode12_float(frame_rows, ids_format=ids)
+        if has_white_balance:
+            bayer = _wb.apply_white_balance(bayer, wb_gains, bayer_pattern)
+        return bayer
+
+    def demosaic(bayer):
         if settings.debayer == Debayer.bilinear:
             return _demosaic.bilinear5x5_demosaic(bayer, bayer_pattern)
         if settings.debayer == Debayer.rcd:
-            return _rcd.rcd_demosaic(bayer, bayer_pattern)
+            return _rcd.rcd_demosaic(bayer, bayer_pattern, strict_alias=rcd_strict_alias)
         if settings.debayer == Debayer.ppg:
             return _demosaic.ppg_demosaic(bayer, bayer_pattern,
                                           median_threshold=settings.ppg_median_threshold)
         raise AssertionError(f'Invalid debayer method: {settings.debayer}')
 
     def _front_one(frame_rows, wb_gains):
-        bayer = _packed.decode12_float(frame_rows, ids_format=ids)
-        if has_white_balance:
-            bayer = _wb.apply_white_balance(bayer, wb_gains, bayer_pattern)
-        rgb = _demosaic_one(bayer)
+        rgb = demosaic(decode(frame_rows, wb_gains))
         if settings.postprocess:
             rgb = _postprocess.postprocess(
                 rgb, bayer_pattern, color_smoothing_passes=settings.color_smoothing_passes,
@@ -115,13 +163,13 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
     # stage input is known to be clipped (it came out of a preceding
     # lab_modify_luminance, which ends in clip01) the unclipped LAB serves
     # both sides; otherwise the clipped L shares the sRGB decode.
-    def _lab_and_lum(rgb, input_clipped: bool):
+    def lab_and_lum(rgb, input_clipped: bool):
         if input_clipped:
             lab = _color.rgb_to_lab(rgb)
             return lab, lab[..., 0]
         return _color.rgb_to_lab_with_clipped_l(rgb)
 
-    def _denoise_one(rgb):
+    def denoise(rgb):
         eps = 1e-4
         lab, lum = _color.rgb_to_lab_with_clipped_l(rgb)  # normalize output: not clipped
         log_lum = torch.log(torch.clamp(lum, min=eps))
@@ -135,53 +183,60 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
         )[..., 0]
         return _color.lab_modify_luminance(lab, torch.exp(den + eps))
 
-    def _bilateral_one(rgb):
-        lab, lum = _lab_and_lum(rgb, input_clipped=settings.enable_denoise)
+    def bilateral(rgb):
+        lab, lum = lab_and_lum(rgb, input_clipped=settings.enable_denoise)
         out = _bilateral.bilateral_process(lum, settings.bil_sigma_spatial,
                                            settings.bil_sigma_luminance, settings.bilateral)
         return _color.lab_modify_luminance(lab, out)
 
+    def laplacian(lum):
+        return _laplacian.local_laplacian(lum, _laplacian_params(settings))
+
     def _laplacian_one(rgb):
-        lab, lum = _lab_and_lum(
+        lab, lum = lab_and_lum(
             rgb, input_clipped=settings.enable_denoise or settings.enable_bilateral)
-        return _color.lab_modify_luminance(
-            lab, _laplacian.local_laplacian(lum, _laplacian_params(settings)))
+        return _color.lab_modify_luminance(lab, laplacian(lum))
 
     def _back_one(rgb, bounds):
         rgb = normalize_image(rgb, bounds)
         if settings.enable_denoise:
-            rgb = _denoise_one(rgb)
+            rgb = denoise(rgb)
         if settings.enable_bilateral:
-            rgb = _bilateral_one(rgb)
+            rgb = bilateral(rgb)
         if settings.enable_laplacian:
             rgb = _laplacian_one(rgb)
         return rgb
 
-    def fused(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
+    def front(bytes_batch, wb_gains):
         rows = bytes_batch.reshape(-1, height, (width * 3) // 2)
         n = rows.shape[0]
         rgb = torch.empty((n, height, width, 3), dtype=torch.float32, device=rows.device)
-        samples = []
         for i in range(n):
             rgb[i] = _front_one(rows[i], wb_gains)
-            samples.append(_sample_plane(rgb[i]))
-        bounds = lerp(bounds_in, _tonemap.compute_image_bounds(torch.stack(samples), stride=1),
-                      alpha)
+        return rgb, sample(rgb)
 
-        if settings.enable_denoise or settings.enable_bilateral or settings.enable_laplacian:
-            samples = []
-            for i in range(n):
-                rgb[i] = _back_one(rgb[i], bounds)
-                samples.append(_sample_plane(rgb[i]))
-            samples = torch.stack(samples)
-        else:
+    def back(rgb, samples, bounds):
+        if not has_back:
             # normalize commutes with the strided sampling
-            samples = normalize_image(torch.stack(samples), bounds)
-            rgb = normalize_image(rgb, bounds)
+            return normalize_image(rgb, bounds), normalize_image(samples, bounds)
+        for i in range(rgb.shape[0]):
+            rgb[i] = _back_one(rgb[i], bounds)
+        return rgb, sample(rgb)
 
-        metrics = lerp(metrics_in, _tonemap.compute_image_metrics(samples, stride=1), alpha)
-        return _tonemap_dispatch(settings, rgb, metrics), bounds, metrics
+    def tonemap(rgb, metrics):
+        return _tonemap_dispatch(settings, rgb, metrics)
 
+    def fused(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
+        rgb, samples = front(bytes_batch, wb_gains)
+        bounds = ema_bounds(samples, bounds_in, alpha)
+        rgb, samples = back(rgb, samples, bounds)
+        metrics = ema_metrics(samples, metrics_in, alpha)
+        return tonemap(rgb, metrics), bounds, metrics
+
+    fused.stages = PipelineStages(
+        decode=decode, demosaic=demosaic, front=front, sample=sample, back=back,
+        denoise=denoise, bilateral=bilateral, lab_and_lum=lab_and_lum, laplacian=laplacian,
+        tonemap=tonemap)
     return fused
 
 
@@ -192,8 +247,17 @@ class ImageProcessor:
                  packed_format: PackedFormat, settings: ImageProcessingSettings,
                  device=None, white_balance: tuple[float, float, float] | None = None,
                  transforms: ImageTransform | dict[str, ImageTransform] = ImageTransform.none,
-                 padding: int = 0):
+                 padding: int = 0, mesh=None):
+        """`mesh`: a parallel.Mesh with a 'batch' axis.  Frame batches (the
+        12 cameras of the beetroot rig) then split over its devices, and
+        the bounds and metrics EMA reduce the gathered samples of every
+        shard, so the result equals the unsharded program's.  The batch
+        size must be divisible by the mesh size.  Without `device`, a mesh
+        puts the processor's state on its first device."""
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.settings = settings
         self.image_size = tuple(image_size)
         self.bayer_pattern = bayer_pattern
@@ -214,6 +278,10 @@ class ImageProcessor:
         s = self.settings
         self._fused = build_pipeline_fn(s, self.image_size, self.bayer_pattern,
                                         self.packed_format, self.white_balance is not None)
+        if self.mesh is not None:
+            from ..parallel.mesh import sharded_pipeline
+
+            self._fused = sharded_pipeline(self._fused, self.mesh)
         self.bil_workspace = Bilateral(self.device, self.image_size, sigma_s=s.bil_sigma_spatial,
                                        sigma_r=s.bil_sigma_luminance)
         self.rcd_workspace = RCD(self.device, self.image_size, self.bayer_pattern)
@@ -349,6 +417,9 @@ class ImageProcessor:
                                  f'got {bytes_batch.shape[-1]} bytes.')
         if self.padding > 0:
             bytes_batch = bytes_batch[:, : -self.padding]
+        if self.mesh is not None and bytes_batch.shape[0] % self.mesh.size != 0:
+            raise ValueError(f'batch size {bytes_batch.shape[0]} must be divisible by the '
+                             f'mesh size {self.mesh.size} for sharded processing')
         first = self.bounds is None
         f32 = dict(dtype=torch.float32, device=self.device)
         alpha = torch.full((), 1.0 if first else self.settings.moving_average, **f32)
@@ -374,4 +445,4 @@ class ImageProcessor:
         return self.process_image_set({image_name: bytes})[image_name]
 
 
-__all__ = ['ImageProcessor', 'ImageSizeMismatchError', 'build_pipeline_fn']
+__all__ = ['ImageProcessor', 'ImageSizeMismatchError', 'PipelineStages', 'build_pipeline_fn']
