@@ -31,10 +31,19 @@ Phases (any failure raises and the script exits non-zero):
      the 3-pass colour smoothing and the bilateral detail term each in one
      wrapper call; its Wiener stage takes the separable float16 route of the
      default denoise_f16, as the JAX package's FULL does), so each must show
-     exactly BATCH * N_BATCHES = 12, and the other kernels 0.  Prints ms per
-     frame, frames per second, per-stage ms (the Wiener stage on both routes,
-     the tile-core route split into pad, slab build, kernel, overlap-add and
-     weight division) and peak device memory.
+     exactly BATCH * N_BATCHES = 12, and the other kernels 0.  ImageProcessor
+     captures its batched program as a CUDA graph on the first call (eager)
+     and replays it for the other two, so the counts are 4 eager, then 4 and
+     4 replayed.  The same 3 batches go in turns through an eager copy of
+     build_pipeline_fn and the graphed processor (eager, graphed, graphed,
+     eager), each turn from the first batch's EMA state; every batch of
+     every turn must equal the first eager turn bit for bit (uint8, bounds,
+     metrics).  Prints ms per frame of each turn, frames per second, the
+     capture seconds, per-stage ms (the Wiener stage on both routes, the
+     tile-core route split into pad, slab build, kernel, overlap-add and
+     weight division), peak device memory and what the graph keeps
+     allocated; after phase 10's profiling, the card's busy time and idle
+     share of one batch of 4 replayed and eager.
   6. BASELINE config 3: wavelet then NLM denoise of 8 frames of 4096x3000
      RGB from the FULL front end, a warm-up pass then a timed pass with
      exactly 8 launches of each kernel; finite output with a lower std than
@@ -122,7 +131,9 @@ Phases (any failure raises and the script exits non-zero):
      band block of a frame (launch counts zeroed just before its first
      call), makes the host wait for the card nowhere (CUDA sync
      debugging), and is timed against its unsharded program by CUDA
-     events.  With more than one card, the 3 bands also run over distinct
+     events (the rig's unsharded processor replays its captured graph; its
+     capture seconds, peak memory and the memory its graph keeps reserved
+     are printed).  With more than one card, the 3 bands also run over distinct
      cards (1 count).
  14. the viewer's controller (scripts/view_raw/pipeline_ui.py) on the card
      with matplotlib and Pillow blocked: a synthetic 4096x3000 frame in a
@@ -132,7 +143,8 @@ Phases (any failure raises and the script exits non-zero):
      least one launch of each of FULL's three kernels; encode_jpeg_bytes on
      the card gives FF D8 .. FF D9; the controller on the card against the
      same on the CPU at 1024x768 (1 count).
-Then one JSON line with the JPEG numbers, one with the Laplacian's, one
+Then one JSON line with FULL's graphed and eager numbers, one with the
+JPEG numbers, one with the Laplacian's, one
 with the command-line tools', one with the sharded programs' and the
 viewer's, one with the kernels, the card's name and power limit, and the
 result JSON as the last line.
@@ -558,25 +570,65 @@ def phase_card_vs_cpu(dev, settings, label='FULL'):
 
 # ---------------------------------------------------------------- phase 5
 
+def full_turn(run, batches):
+    """One pass of a FULL program over the batches from the first batch's
+    EMA state: each batch's (uint8, bounds, metrics) and host seconds (to a
+    synchronize).  run(k, batch) -> (uint8, bounds, metrics)."""
+    outs, times = [], []
+    for k, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(run(k, b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return outs, times
+
+
 def phase_full(dev):
+    """FULL through ImageProcessor (its batched program captured as a CUDA
+    graph on the first call and replayed after) and through an eager copy
+    of build_pipeline_fn, in turns: eager, graphed, graphed, eager.  The
+    second turn is the main path's run (launch counts and peak memory)."""
     import tpu_darktable_torch as tt
     from tpu_darktable_torch import kernels
 
+    s = full_settings()
     proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
-                             full_settings(), device=dev, white_balance=WB)
+                             s, device=dev, white_balance=WB)
+    fn = tt.build_pipeline_fn(s, (W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, True)
     batches = [synthetic_frames(W, H, BATCH, seed=100 + b).to(dev) for b in range(N_BATCHES)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    f32 = dict(dtype=torch.float32, device=dev)
+    wb = torch.tensor(WB, **f32)
 
+    def eager(k, b):
+        if k == 0:
+            eager.state = (torch.zeros(2, **f32), torch.zeros(5, **f32))
+        alpha = torch.full((), 1.0 if k == 0 else s.moving_average, **f32)
+        out, bounds, metrics = fn(b, wb, *eager.state, alpha)
+        eager.state = (bounds, metrics)
+        return out, bounds, metrics
+
+    def graphed(k, b):
+        if k == 0:
+            proc.bounds = proc.metrics = None
+        return proc.process_batch(b), proc.bounds, proc.metrics
+
+    turns = {'eager 1': full_turn(eager, batches)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    times = []
-    for b in batches:
-        t0 = time.perf_counter()
-        out = proc.process_batch(b)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    turns['graphed 1'] = full_turn(graphed, batches)
     launches = dict(kernels.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30  # before the checks allocate
+    torch.cuda.empty_cache()
+    # what the processor keeps reserved: its graph's pool, static buffers and outputs
+    graph_gib = (torch.cuda.memory_reserved() - base) / 2**30
+    turns['graphed 2'] = full_turn(graphed, batches)
+    turns['eager 2'] = full_turn(eager, batches)
+    out = turns['graphed 1'][0][-1][0]
+    times = turns['graphed 1'][1]
 
     log(f'FULL launches: {launches}')
     for name, n in launches.items():
@@ -595,8 +647,54 @@ def phase_full(dev):
         f'{steady / BATCH * 1e3:.2f} ms/frame, {BATCH / steady:.2f} frames/s (batches 2..{N_BATCHES}); '
         f'peak device memory {peak_gib:.2f} GiB')
     log(f'FULL bounds {proc.bounds.tolist()} metrics {proc.metrics.tolist()}')
+
+    # the graphed program against the eager copy, bit for bit, every batch
+    ref = turns['eager 1'][0]
+    for label, (outs, _) in turns.items():
+        for k, (got, want) in enumerate(zip(outs, ref)):
+            names = [n for n, a, b in zip(('uint8', 'bounds', 'metrics'), got, want)
+                     if not torch.equal(a, b)]
+            if names:
+                raise AssertionError(f'FULL {label} batch {k + 1}: {names} differ from the eager '
+                                     'program (bit for bit expected)')
+    def ms_per_frame(label, t):
+        t = t[1:] if label.endswith('1') else t   # a program's first turn: batches 2..N
+        return sum(t) / (len(t) * BATCH) * 1e3
+
+    report = dict(
+        capture_seconds=[c.seconds for c in proc._fused._captured.values()],
+        peak_gib=peak_gib, graph_reserved_gib=graph_gib,
+        batch_seconds={k: v[1] for k, v in turns.items()},
+        ms_per_frame={k: ms_per_frame(k, v[1]) for k, v in turns.items()})
+    log(f'FULL graphed vs eager in turns (eager, graphed, graphed, eager), bit for bit in every '
+        f'batch (uint8, bounds, metrics); ms/frame (the first turn of each program over batches '
+        f'2..{N_BATCHES}, the second over all): '
+        + ', '.join(f'{k} {v:.2f}' for k, v in report['ms_per_frame'].items())
+        + f'; capture {report["capture_seconds"]} s; peak {peak_gib:.2f} GiB, '
+        f'{graph_gib:.2f} GiB kept reserved by the graphed processor')
     stage_ms(dev, batches[0][0])
-    return launches
+    return launches, report
+
+
+def profile_full(dev):
+    """The card's busy time and idle share of one FULL batch of 4, replayed
+    from its graph and eager, after phase 10's profiling."""
+    import tpu_darktable_torch as tt
+
+    s = full_settings()
+    proc = tt.ImageProcessor((W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             s, device=dev, white_balance=WB)
+    fn = tt.build_pipeline_fn(s, (W, H), tt.BayerPattern.RGGB, tt.PackedFormat.Packed12, True)
+    batch = synthetic_frames(W, H, BATCH, seed=100).to(dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = (torch.tensor(WB, **f32), torch.zeros(2, **f32), torch.zeros(5, **f32),
+             torch.ones((), **f32))
+    proc.process_batch(batch)   # the eager first call and the capture
+    report = {'full_graphed_batch_4': device_busy(lambda: proc.process_batch(batch)),
+              'full_eager_batch_4': device_busy(lambda: fn(batch, *state))}
+    for label, r in report.items():
+        log(f'profile of {label}: {r}')
+    return report
 
 
 def stage_ms(dev, frame_bytes):
@@ -1060,7 +1158,8 @@ def wall_ms(fn, n):
 def device_busy(fn):
     """fn() once under torch.profiler, after a warm-up call: its wall ms (to
     a synchronize), the ms the card spent in kernels and copies, the share
-    of the wall time the card was idle, and the number of device ops."""
+    of the wall time the card was idle, the number of device ops, and the
+    eight ops with the most device time (name, ms, count)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1070,10 +1169,13 @@ def device_busy(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0)
-               for e in evs) / 1e3
+    ms = lambda e: (getattr(e, 'self_device_time_total', None)
+                    or getattr(e, 'self_cuda_time_total', 0)) / 1e3
+    busy = sum(ms(e) for e in evs)
+    top = sorted(evs, key=ms, reverse=True)[:8]
     return dict(wall_ms=wall, device_ms=busy, idle_share=max(0.0, 1.0 - busy / wall),
-                device_ops=sum(e.count for e in evs))
+                device_ops=sum(e.count for e in evs),
+                top_device_ms=[(e.key[:70], ms(e), e.count) for e in top])
 
 
 def phase_jpeg(dev, smi):
@@ -1496,6 +1598,19 @@ def phase_sharded(dev):
     sharded, single = mk(mesh), mk(None)
     run = lambda p: (torch.stack(list(p.process_image_set(image_set).values())), p.bounds,
                      p.metrics)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    run(single)   # its eager first call and capture: the reference below is a replay
+    single.bounds = single.metrics = None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    report['rig graph'] = dict(
+        capture_seconds=[c.seconds for c in single._fused._captured.values()], peak_gib=peak,
+        graph_reserved_gib=(torch.cuda.memory_reserved() - base) / 2**30)
+    log(f'the rig\'s unsharded processor ({len(names)} cameras a batch): {report["rig graph"]}')
     label = f'beetroot rig {w}x{h} Packed12_IDS, 12 cameras batch-sharded over {mesh.size} shards'
     sharded_case(label, lambda: run(sharded), lambda: run(single), len(names), 1, report)
     out = sharded.process_image_set(image_set)
@@ -1637,7 +1752,7 @@ def main():
     kern = timed(phase_kernels, dev)
     timed(phase_goldens, dev)
     timed(phase_card_vs_cpu, dev, full_settings())
-    launches = timed(phase_full, dev)
+    launches, full = timed(phase_full, dev)
     # each kernel's count from the run of its own path
     launches.update({k: v for k, v in timed(phase_denoise, dev).items()
                      if k in ('wavelet_core', 'nlm_core')})
@@ -1648,6 +1763,7 @@ def main():
     lap, lap_profiled = timed(phase_laplacian, dev)
     jpeg = timed(phase_jpeg, dev, smi)
     lap = timed(profile_laplacian, lap, lap_profiled)
+    full.update(timed(profile_full, dev))
     cli = timed(phase_cli, dev)
     sharded = timed(phase_sharded, dev)
     viewer = timed(phase_viewer, dev)
@@ -1656,6 +1772,7 @@ def main():
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms']
+    print(json.dumps({'full': full}))
     print(json.dumps({'jpeg': jpeg}))
     print(json.dumps({'laplacian': lap}))
     print(json.dumps({'cli': cli}))

@@ -369,3 +369,150 @@ def test_sharded_programs_on_card(dev):
         assert (out.int() - want.reshape(out.shape).int()).abs().max().item() <= 1
         assert (bounds - want_bounds).abs().max().item() <= 1e-6
         assert torch.allclose(metrics, want_metrics, rtol=1e-5, atol=1e-6)
+
+
+# ---- the batched program as a CUDA graph (tpu_darktable_torch/_graph.py)
+
+def _graph_case(dev, case, w=256, h=192, n_batches=3, batch=2):
+    """The graphed ImageProcessor and the eager build_pipeline_fn of one
+    settings case on the same batches: their outputs, bounds and metrics
+    a batch, and the launches of each."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+
+    s = case_settings(case)
+    frames = case_frames(w, h, n_batches * batch, seed=21).to(dev)
+    batches = [frames[i * batch:(i + 1) * batch] for i in range(n_batches)]
+    fn = tt.build_pipeline_fn(s, (w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    wb = torch.tensor([1.2, 1.0, 1.1], **f32)
+    bounds, metrics = torch.zeros(2, **f32), torch.zeros(5, **f32)
+    kernels.reset_launches()
+    eager = []
+    for k, b in enumerate(batches):
+        alpha = torch.full((), 1.0 if k == 0 else s.moving_average, **f32)
+        out, bounds, metrics = fn(b, wb, bounds, metrics, alpha)
+        eager.append((out, bounds, metrics))
+    eager_launches = dict(kernels.launches)
+    proc = tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                             device=dev, white_balance=(1.2, 1.0, 1.1))
+    kernels.reset_launches()
+    graphed = [(proc.process_batch(b), proc.bounds, proc.metrics) for b in batches]
+    return proc, batches, eager, graphed, eager_launches, dict(kernels.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['full', 'laplacian', 'ppg', 'bilinear', 'aces', 'reinhard',
+                                  'linear', 'filmic', 'sigma_s3', 'denoise_f32'])
+def test_graphed_process_batch_equals_eager(dev, case):
+    """Three batches of 2 at 256x192: the first eager, then a capture, then
+    two replays, bit for bit with the eager program (uint8 output, bounds
+    and metrics), and the launches of each kernel that ran equal to the
+    eager program's: one a frame."""
+    proc, _, eager, graphed, eager_launches, launches = _graph_case(dev, case)
+    assert len(proc._fused._captured) == 1
+    for (a, ab, am), (b, bb, bm) in zip(eager, graphed):
+        assert torch.equal(a, b) and torch.equal(ab, bb) and torch.equal(am, bm)
+    assert launches == eager_launches
+    if case == 'full':
+        assert all(launches[k] == 6 for k in ('rcd_interior', 'color_smooth_diffs',
+                                              'bilateral_band'))
+        assert sum(launches.values()) == 18
+
+
+@pytest.mark.cuda
+def test_graph_outputs_survive_the_next_call(dev):
+    """A tensor a call returned (the uint8 batch, the bounds and metrics
+    the processor keeps) is unchanged after the next call."""
+    proc, batches, _, graphed, _, _ = _graph_case(dev, 'full')
+    kept = [tuple(t.clone() for t in g) for g in graphed]
+    proc.process_batch(batches[0])
+    proc.process_batch(batches[2])
+    for g, k in zip(graphed, kept):
+        assert all(torch.equal(a, b) for a, b in zip(g, k))
+
+
+@pytest.mark.cuda
+def test_new_batch_size_captures_again(dev):
+    """Batches of 2, 1, 2, 1: one capture a batch size, each replay equal to
+    the eager program on the same state."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+
+    w, h = 256, 192
+    s = case_settings('full')
+    frames = case_frames(w, h, 6, seed=22).to(dev)
+    batches = [frames[0:2], frames[2:3], frames[3:5], frames[5:6]]
+    proc = tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                             device=dev, white_balance=(1.2, 1.0, 1.1))
+    fn = tt.build_pipeline_fn(s, (w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    wb = torch.tensor([1.2, 1.0, 1.1], **f32)
+    bounds, metrics = torch.zeros(2, **f32), torch.zeros(5, **f32)
+    for k, b in enumerate(batches):
+        alpha = torch.full((), 1.0 if k == 0 else s.moving_average, **f32)
+        out, bounds, metrics = fn(b, wb, bounds, metrics, alpha)
+        assert torch.equal(proc.process_batch(b), out)
+        assert torch.equal(proc.bounds, bounds) and torch.equal(proc.metrics, metrics)
+    assert len(proc._fused._captured) == 2
+
+
+@pytest.mark.cuda
+def test_update_settings_drops_the_graphs(dev):
+    """update_settings replaces the wrapper: the old graphs and their pool
+    go, and the new settings capture their own program."""
+    import gc
+    import weakref
+    from test_torch_graph import case_settings
+
+    proc, batches, _, _, _, _ = _graph_case(dev, 'full')
+    old = weakref.ref(proc._fused)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    proc.update_settings(case_settings('reinhard'))
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert old() is None and proc._fused._captured == {}
+    assert torch.cuda.memory_reserved() < reserved
+    proc.process_batch(batches[0])
+    proc.process_batch(batches[1])
+    assert len(proc._fused._captured) == 1
+
+
+@pytest.mark.cuda
+def test_replay_outlives_the_device_caches(dev):
+    """After the capture, every device cache cleared, the allocator's cache
+    emptied and the freed memory overwritten: the replays still equal the
+    eager program bit for bit (the graph holds the constants it read)."""
+    import gc
+    from test_torch_graph import case_settings
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import _device
+
+    for case in ('full', 'bilinear', 'sigma_s3', 'denoise_f32', 'laplacian'):
+        proc, batches, eager, _, _, _ = _graph_case(dev, case, n_batches=1)
+        _device.clear_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        junk = [torch.full((1 << 20,), float('nan'), device=dev) for _ in range(64)]
+        proc.bounds = proc.metrics = None    # the first batch's state again
+        out = proc.process_batch(batches[0])
+        del junk
+        assert torch.equal(out, eager[0][0]), case
+        assert torch.equal(proc.bounds, eager[0][1]) and torch.equal(proc.metrics, eager[0][2])
+
+
+@pytest.mark.cuda
+def test_replay_makes_no_host_wait(dev):
+    """A replayed process_batch (a batch on the card) runs under CUDA sync
+    debugging set to 'error' without raising."""
+    proc, batches, eager, _, _, _ = _graph_case(dev, 'full')
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = proc.process_batch(batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert out.shape == eager[1][0].shape

@@ -23,11 +23,11 @@ the mean after the transform.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
+from .._device import device_cache
 from . import launches
 
 _EPS = 1e-15
@@ -52,7 +52,7 @@ def _check(slabs: torch.Tensor, sig2: torch.Tensor, wf, wi, k: int):
         raise ValueError(f'windows must have shape ({k},), got {np.shape(wf)} and {np.shape(wi)}')
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _windows(k: int, wf_bytes: bytes, wi_bytes: bytes, device: torch.device) -> torch.Tensor:
     """(2, K) float32 on the device: the analysis and the synthesis window."""
     tab = np.stack([np.frombuffer(wf_bytes, np.float32), np.frombuffer(wi_bytes, np.float32)])
@@ -119,7 +119,7 @@ def rdft2_basis(k: int) -> tuple[np.ndarray, np.ndarray, int]:
     return analysis.astype(np.float32), synthesis.astype(np.float32), r
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _folded(k: int, wf_bytes: bytes, wi_bytes: bytes, device: torch.device):
     wf, wi = np.frombuffer(wf_bytes, np.float32), np.frombuffer(wi_bytes, np.float32)
     analysis, synthesis, n_rep = rdft2_basis(k)

@@ -18,12 +18,12 @@ of a numerator and a denominator grid.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
 import torch
 
+from .._device import device_cache
 from ..kernels.bilateral_band import bilateral_band
 from ..kernels.grid_blur import grid_blur_xyz
 
@@ -136,7 +136,7 @@ class _Windowed:
         return c0 * (1.0 - fx) + c1 * fx
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _windowed(h: int, w: int, gx: int, gy: int, sigma_s: float, dev: torch.device) -> _Windowed:
     """The operators of one geometry, built once (the pipeline calls the
     bilateral stage every frame)."""

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import scalar_on, to_device
+from .._device import constant_on, scalar_on
 from .._validate import check_channels_last
 
 _RGB_TO_XYZ = np.array(
@@ -100,7 +100,7 @@ def _lab_f_inv(t):
 
 
 def _white(like: torch.Tensor) -> torch.Tensor:
-    return to_device(_D65_WHITE, like.device)
+    return constant_on(_D65_WHITE, like.device)
 
 
 def xyz_to_lab(xyz: torch.Tensor) -> torch.Tensor:

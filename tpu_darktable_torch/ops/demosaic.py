@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import to_device
+from .._device import constant_on
 from .._validate import as_mosaic
 from .bayer import BayerPattern, fc, fc_tile, pixel_order
 from ._stencil import Shifter, interior_mask, row_col_iota, site_masks, sort9
@@ -20,7 +20,7 @@ _F32 = torch.float32
 
 def _tile2x2_map(h: int, w: int, tile, device) -> torch.Tensor:
     """Expand a (2, 2) table into an (h, w) map by row/column parity."""
-    t = to_device(tile, device)
+    t = constant_on(tile, device)
     return t.repeat((h + 1) // 2, (w + 1) // 2)[:h, :w]
 
 

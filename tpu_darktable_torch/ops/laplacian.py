@@ -15,7 +15,6 @@ Geometry: num_levels = min(30, floor(log2(min(w, h)))), the full pad
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -23,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import scalar_on, to_device
+from .._device import device_cache, scalar_on, to_device
 
 _F32 = torch.float32
 MAX_LEVELS = 30
@@ -107,7 +106,7 @@ def _expand_axis(c: torch.Tensor, n_fine: int, axis: int) -> torch.Tensor:
     return inter[:n_fine].movedim(0, axis)
 
 
-@functools.lru_cache(maxsize=128)
+@device_cache(maxsize=128)
 def _clamp_idx(n: int, dev: torch.device) -> torch.Tensor:
     """clamp_boundary for one axis, on the device, built once a geometry
     (the pipeline calls the stage every frame)."""

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._device import scalar_on, to_device
+from .._device import scalar_on
 from .._validate import check_channels_last
 from .color import color_transform_3x3, modify_vibrance, rgb_to_gray
 
@@ -81,7 +81,7 @@ def _compute_adaptation(metrics: torch.Tensor, pixel_rgb: torch.Tensor,
     metrics = metrics.to(torch.float32)
     map_key = _compute_map_key(metrics[0])
     global_mean = metrics[2:5]
-    exposure = torch.exp(to_device(intensity, metrics.device, torch.float32))
+    exposure = torch.exp(scalar_on(intensity, metrics.device))
     adapt_mean = global_mean + light_adapt * (pixel_rgb - global_mean)
     return torch.pow(adapt_mean / exposure, map_key)
 

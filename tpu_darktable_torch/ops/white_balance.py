@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import to_device
+from .._device import constant_on
 from .bayer import BayerPattern, fc_tile
 
 
@@ -35,7 +35,7 @@ def apply_white_balance(bayer_image: torch.Tensor, gains: torch.Tensor,
     if tuple(gains.shape) != (3,):
         raise RuntimeError(f'gains must have shape (3,), got {tuple(gains.shape)}')
     h, w = bayer_image.shape[-2:]
-    tile = gains[to_device(_gain_tile(pattern), gains.device)]  # (2, 2)
+    tile = gains[constant_on(_gain_tile(pattern), gains.device)]  # (2, 2)
     gain_map = tile.repeat((h + 1) // 2, (w + 1) // 2)[:h, :w]
     return torch.clamp(bayer_image * gain_map, 0.0, 1.0)
 

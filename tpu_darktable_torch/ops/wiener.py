@@ -29,13 +29,11 @@ path with the same folded rDFT basis, as in the JAX package.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import to_device
+from .._device import constant_on, device_cache, to_device
 from ..kernels.wiener_core import folded_bases, wiener_tile_core
 
 _F32 = torch.float32
@@ -61,7 +59,7 @@ def _gaussian_window(k: int, weight: float) -> np.ndarray:
     return vals.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _weight_sum_1d(n_pad: int, grid_n: int, k: int, stride: int, fft_scale: float,
                    interp_scale: float, dev: torch.device) -> torch.Tensor:
     """The overlap-add weight along one axis of the padded frame: the sum of
@@ -124,7 +122,7 @@ def _sep_bases(k: int, wf: np.ndarray, wi: np.ndarray) -> dict:
     )
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _sep_bases_on(k: int, wf_bytes: bytes, wi_bytes: bytes, dev: torch.device) -> dict:
     """_sep_bases as tensors on `dev`, built once per geometry and device
     and copied through pinned memory, so that the pipeline's per-frame
@@ -250,7 +248,8 @@ def wiener_denoise(image: torch.Tensor, noise_sigmas, tile_size: int = 32,
         raise ValueError(f'overlap_factor must be 2, 4, or 8, got {overlap_factor}')
     dev = x.device
     _require_fp32_matmul(dev)
-    sigmas = to_device(noise_sigmas, dev, _F32).reshape(-1).expand(c)
+    sigmas = (to_device(noise_sigmas, dev, _F32) if isinstance(noise_sigmas, torch.Tensor)
+              else constant_on(noise_sigmas, dev, _F32)).reshape(-1).expand(c)
 
     ov = overlap_factor
     stride = k // ov
@@ -348,8 +347,8 @@ def _wiener_gather(x, sigmas, k, ov, grid_h, grid_w, wf, wi, mrow, mcol):
             col0 = (rx - ov) * stride
             out_c0 = col0 + k
             n_keep_c = min(n_tx * k, w_pad - out_c0)
-            rows = torch.as_tensor(_reflect_index(row0 + np.arange(n_ty * k), h), device=dev)
-            cols = torch.as_tensor(_reflect_index(col0 + np.arange(n_tx * k), w), device=dev)
+            rows = constant_on(_reflect_index(row0 + np.arange(n_ty * k), h), dev)
+            cols = constant_on(_reflect_index(col0 + np.arange(n_tx * k), w), dev)
             tiles = x[rows][:, cols].reshape(n_ty, k, n_tx, k, c)
             raw = torch.einsum('ruv,aubvc->abcr', ana3, tiles)
             mean = raw[..., -1:]

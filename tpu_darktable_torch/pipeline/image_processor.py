@@ -8,7 +8,10 @@ tpu_darktable/pipeline/image_processor.py:55-549).
 The per-frame stages run as two Python loops over the batch, split by the
 batch-global bounds EMA, one frame at a time so that live memory stays one
 frame deep.  The EMA state (bounds (2,), metrics (5,)) stays on the device
-between batches: there is no host sync on the path.
+between batches: there is no host sync on the path.  On the card the
+batched program is captured as a CUDA graph on its first call for each
+input shape and replayed after (_graph.py, where JAX writes
+jax.jit(fused)); on the CPU it runs eagerly.
 
 The fused program's stages (PipelineStages, `fn.stages`) are what the
 sharded programs of parallel/ run on each shard, so they compute what it
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, to_device
+from .._graph import Graphed
 from ..debayer import PPG, RCD, PostProcess
 from ..denoise import Wiener
 from ..local_contrast import Bilateral
@@ -276,12 +280,15 @@ class ImageProcessor:
         """The per-op workspaces of the piecewise API and the batched
         pipeline, for the current settings."""
         s = self.settings
-        self._fused = build_pipeline_fn(s, self.image_size, self.bayer_pattern,
-                                        self.packed_format, self.white_balance is not None)
-        if self.mesh is not None:
+        fused = build_pipeline_fn(s, self.image_size, self.bayer_pattern,
+                                  self.packed_format, self.white_balance is not None)
+        if self.mesh is None:
+            # as JAX jits it: on the card one CUDA graph per input shape
+            self._fused = Graphed(fused)
+        else:
             from ..parallel.mesh import sharded_pipeline
 
-            self._fused = sharded_pipeline(self._fused, self.mesh)
+            self._fused = sharded_pipeline(fused, self.mesh)
         self.bil_workspace = Bilateral(self.device, self.image_size, sigma_s=s.bil_sigma_spatial,
                                        sigma_r=s.bil_sigma_luminance)
         self.rcd_workspace = RCD(self.device, self.image_size, self.bayer_pattern)
