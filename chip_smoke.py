@@ -48,6 +48,13 @@ Phases (any failure raises and the script exits non-zero):
      RGB from the FULL front end, a warm-up pass then a timed pass with
      exactly 8 launches of each kernel; finite output with a lower std than
      its input.  Prints ms per frame, frames per second and peak memory.
+     Then the config's chain of 2 passes as benchmarks/baseline_configs.py
+     jits it (_bench_chained), as one CUDA graph: its first call eager and
+     captured, its replay bit for bit with the eager chain and launching 8
+     of each kernel a pass, ms a frame by CUDA events in turns (eager,
+     graphed, graphed, eager).  BASELINE config 2 the same way: PPG and RCD,
+     each with 3 colour-smoothing passes, of 8 mosaics of 4096x3000, 3
+     passes: 8 rcd_interior and 16 color_smooth_diffs launches a pass.
   7. FULL with bil_sigma_spatial = 3, the general bilateral path, through
      ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches
      and no bilateral_band; card vs CPU at 1024x768 (1 count); one
@@ -68,7 +75,12 @@ Phases (any failure raises and the script exits non-zero):
   9. the piecewise entry point at 4096x3000: load_bytes -> debayer ->
      process_rgb -> tonemap with bounds and metrics from a fused run of the
      same frame, equal to the fused output within 1 count, one launch of
-     each of FULL's three kernels; then the PPG and
+     each of FULL's three kernels; its first call runs eagerly and captures
+     each workspace's graph (the capture seconds and the GiB the processor's
+     pool keeps reserved are printed); then 3 frames in turns through an
+     eager copy and the graphed processor (eager, graphed, graphed, eager),
+     every frame bit for bit with the first eager turn (after phase 10, the
+     card's busy time and idle share of one frame each way); then the PPG and
      bilinear debayers and the linear and filmic tonemaps through the
      piecewise chain, card vs CPU at 1024x768 (1 count).
  10. JPEG and streaming (BASELINE config 5): the native host scan must have
@@ -98,7 +110,9 @@ Phases (any failure raises and the script exits non-zero):
      plane of uniform values times 0.8, then Reinhard, filmic and ACES of
      the stacked RGB with that config's parameters and metrics: ms/frame
      and the Laplacian alone by CUDA events after a warm-up, peak memory,
-     and (after phase 10) device ops a frame and the card's idle share.
+     and (after phase 10) device ops a frame and the card's idle share;
+     the config's chain of 2 passes as one CUDA graph against the eager
+     chain, as phase 6 runs config 3.
      local_laplacian card vs CPU at 4096x3000 with neutral parameters (pad
      32: bit for bit) and with shadows 0.6, highlights 1.4, clarity 0.3
      (the full pad 1024: 1e-3 in under 0.5% of the elements), with the
@@ -109,7 +123,9 @@ Phases (any failure raises and the script exits non-zero):
      debugging); card vs CPU at 1024x768 fused and piecewise (1 count).
  12. the command-line tools of tpu_darktable_torch/scripts/ on the card:
      run_benchmark in process at its default 4096x3000 (warm-up 1, 3
-     iterations: every op's iterations/s), then the pure functions of
+     iterations: every op's iterations/s, each chain a CUDA graph captured
+     on its first call and replayed, as utils/timing.benchmark_op runs it;
+     the JPEG op timed by the host), then the pure functions of
      test_debayer (RCD), test_bilateral (sigma_s 2 and 3), test_wiener (rgb
      and log_luminance, the Wiener class: the tile core) and test_laplacian
      on a synthetic 4096x3000 frame; launch counts read around each call,
@@ -129,21 +145,30 @@ Phases (any failure raises and the script exits non-zero):
      False): 1 count, bounds atol 1e-6, metrics rtol 1e-5 atol 1e-6.  Each
      launches rcd_interior, color_smooth_diffs and bilateral_band once a
      band block of a frame (launch counts zeroed just before its first
-     call), makes the host wait for the card nowhere (CUDA sync
-     debugging), and is timed against its unsharded program by CUDA
-     events (the rig's unsharded processor replays its captured graph; its
-     capture seconds, peak memory and the memory its graph keeps reserved
-     are printed).  With more than one card, the 3 bands also run over distinct
+     call), replays bit for bit with its first call, makes the host wait
+     for the card nowhere (CUDA sync debugging, on the replays), and is
+     timed replayed against its unsharded program replayed from its CUDA
+     graph by CUDA events (the rig's unsharded processor: its capture
+     seconds, peak memory and the memory its graph keeps reserved are
+     printed; the rig's sharded stages: one capture each for the four
+     shards).  With more than one card, the 3 bands also run over distinct
      cards (1 count).
  14. the viewer's controller (scripts/view_raw/pipeline_ui.py) on the card
      with matplotlib and Pillow blocked: a synthetic 4096x3000 frame in a
      temporary artichoke/ directory (the camera found by the directory
      name) through process_current, update_setting('tone_gamma', 2.0),
      apply_preset('reinhard'), rotate (the frame turns) and reset, with at
-     least one launch of each of FULL's three kernels; encode_jpeg_bytes on
-     the card gives FF D8 .. FF D9; the controller on the card against the
-     same on the CPU at 1024x768 (1 count).
-Then one JSON line with FULL's graphed and eager numbers, one with the
+     least one launch of each of FULL's three kernels, printing after each
+     step the workspaces that captured anew (the tone step may capture
+     nothing) and the GiB the controller keeps reserved; then 3 frames in
+     turns through an eager copy of the controller and the graphed one,
+     bit for bit; encode_jpeg_bytes on the card gives FF D8 .. FF D9; the
+     controller on the card against the same on the CPU at 1024x768 (1
+     count).
+After each phase, the GiB the caching allocator keeps reserved once the
+phase's processors and graphs are gone.
+Then one JSON line with FULL's graphed and eager numbers, config 2's and
+config 3's and the piecewise frame's, one with the
 JPEG numbers, one with the Laplacian's, one
 with the command-line tools', one with the sharded programs' and the
 viewer's, one with the kernels, the card's name and power limit, and the
@@ -193,6 +218,110 @@ def cuda_ms(fn, iters=20, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def chained_case(label, fn, x0, iters, per_pass=None, frames=1, timing_iters=2):
+    """A BASELINE chain as benchmarks/baseline_configs.py:_bench_chained jits
+    it: `iters` calls of fn on its own output, run eagerly and as one CUDA
+    graph (its first call eager, then the capture; later calls replay).
+    The graph's first and replayed outputs must equal the eager chain's bit
+    for bit, and one replay must launch `per_pass` (kernel -> launches a
+    pass) times iters.  ms of a pass by CUDA events in turns: eager,
+    graphed, graphed, eager."""
+    from tpu_darktable_torch import kernels
+    from tpu_darktable_torch._graph import Graphed
+
+    def chain(x):
+        for _ in range(iters):
+            x = fn(x)
+        return x
+
+    graphed = Graphed(chain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = graphed(x0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    replayed = graphed(x0)
+    torch.cuda.synchronize()
+    total = {k: v for k, v in kernels.launches.items() if v}
+    launches = {k: v / iters for k, v in total.items()}
+    want = chain(x0)
+    if not (torch.equal(first, want) and torch.equal(replayed, want)):
+        raise AssertionError(f'{label}: the graphed chain differs from the eager chain')
+    del first, replayed, want
+    if per_pass is not None and total != {k: n * iters for k, n in per_pass.items()}:
+        raise AssertionError(f'{label}: a replay of {iters} passes launched {total}, expected '
+                             f'{per_pass} a pass')
+    ms = {}
+    for turn, f in (('eager 1', chain), ('graphed 1', graphed), ('graphed 2', graphed),
+                    ('eager 2', chain)):
+        ms[turn] = cuda_ms(lambda: f(x0), iters=timing_iters, warmup=1) / iters / frames
+    report = dict(ms_per_frame=ms, first_call_s=first_s, launches_per_pass=launches,
+                  capture_s=[c.seconds for c in graphed._captured.values()])
+    log(f'{label} as one graph of a {iters}-pass chain ({frames} frame(s) a pass), bit for bit '
+        f'with the eager chain; ms/frame in turns: '
+        + ', '.join(f'{k} {v:.3f}' for k, v in ms.items())
+        + f'; first call (eager + capture) {first_s:.2f} s, capture {report["capture_s"]} s; '
+        f'launches a pass {launches}')
+    return report
+
+
+WORKSPACES = ('rcd_workspace', 'ppg_workspace', 'postprocess_workspace', 'wiener_workspace',
+              'bil_workspace')
+
+
+def ungraphed(proc):
+    """proc with its graphs taken out: its workspaces and batched program
+    run eagerly (the eager copy that a graphed processor is held to)."""
+    from tpu_darktable_torch._graph import Graphed
+
+    for name in WORKSPACES:
+        ws = getattr(proc, name)
+        ws._graphs = ws._graphs.fn
+    if isinstance(proc._fused, Graphed):
+        proc._fused = proc._fused.fn
+    return proc
+
+
+def workspace_captures(proc):
+    """name -> (the workspace object's id, its capture keys) of a
+    processor's workspaces."""
+    return {n: (id(getattr(proc, n)), tuple(getattr(proc, n)._graphs._captured))
+            for n in WORKSPACES}
+
+
+def capture_seconds(proc):
+    return sum(c.seconds for n in WORKSPACES
+               for c in getattr(proc, n)._graphs._captured.values())
+
+
+def reserved_gib():
+    """What the caching allocator keeps reserved once its free blocks are
+    returned: the pools of the graphs alive, and live tensors."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def in_turns(runs, inputs):
+    """Each (label, run) of `runs` over every input in turn, timed by the
+    host clock to a synchronize: label -> (outputs, seconds)."""
+    turns = {}
+    for label, run in runs:
+        outs, times = [], []
+        for x in inputs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(run(x))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        turns[label] = (outs, times)
+    return turns
 
 
 def bound(n_bytes, n_ops):
@@ -842,7 +971,44 @@ def phase_denoise(dev):
     log(f'config 3 (wavelet + NLM) {W}x{H}x3 batch {n}: {seconds / n * 1e3:.2f} ms/frame, '
         f'{n / seconds:.2f} frames/s; std {s_in:.5f} -> {s_out:.5f}; '
         f'peak device memory {peak_gib:.2f} GiB')
-    return launches
+    del out
+
+    def denoise_pass(x):
+        y = torch.empty_like(x)
+        for i in range(x.shape[0]):
+            y[i] = denoise.nlm_denoise(denoise.wavelet_denoise(x[i], 0.05), 0.05)
+        return y
+
+    # as benchmarks/baseline_configs.py chains it: 2 passes
+    report = chained_case(f'config 3 (wavelet + NLM) {W}x{H}x3 batch {n}', denoise_pass, rgb, 2,
+                          per_pass={'wavelet_core': n, 'nlm_core': n}, frames=n)
+    report.update(eager_pass_ms_per_frame=seconds / n * 1e3, peak_gib=peak_gib)
+    return launches, report
+
+
+def phase_config2(dev):
+    """BASELINE config 2 (benchmarks/baseline_configs.py:107-123): PPG and
+    RCD demosaic, each with 3 colour-smoothing passes, of 8 mosaics of
+    4096x3000, chained 3 passes as one graph against the eager chain: 8
+    rcd_interior and 16 color_smooth_diffs launches a pass."""
+    from tpu_darktable_torch.ops import demosaic, postprocess, rcd
+    from tpu_darktable_torch.ops.bayer import BayerPattern
+
+    n, p = 8, BayerPattern.RGGB
+    mosaics = torch.from_numpy(
+        (np.random.default_rng(0).random((n, H, W)) * 0.8).astype(np.float32)).to(dev)
+
+    def demosaic_pass(x):
+        y = torch.empty_like(x)
+        for i in range(x.shape[0]):
+            a = postprocess.postprocess(demosaic.ppg_demosaic(x[i], p), p, color_smoothing_passes=3)
+            b = postprocess.postprocess(rcd.rcd_demosaic(x[i], p), p, color_smoothing_passes=3)
+            y[i] = (a + b)[..., 1] * 0.5   # one plane fed back, as the config chains it
+        return y
+
+    return chained_case(f'config 2 (PPG + RCD + postprocess) {W}x{H} batch {n}', demosaic_pass,
+                        mosaics, 3, per_pass={'rcd_interior': n, 'color_smooth_diffs': 2 * n},
+                        frames=n, timing_iters=1)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1044,6 +1210,12 @@ def piecewise(proc, data):
 
 
 def phase_piecewise(dev):
+    """The piecewise entry point at 4096x3000 with FULL's settings and the
+    fused run's bounds and metrics: the first frame (eager, then each
+    workspace's capture) within 1 count of the fused output with one
+    launch of each of FULL's kernels; then 3 frames in turns through an
+    eager copy and the graphed processor (eager, graphed, graphed, eager),
+    every frame bit for bit with the first eager turn."""
     import tpu_darktable_torch as tt
     from tpu_darktable_torch import kernels
 
@@ -1054,26 +1226,54 @@ def phase_piecewise(dev):
     frame = synthetic_frames(W, H, 1, seed=700)[0].to(dev)
     fused_proc = mk((W, H), s, dev)
     fused = fused_proc.process(frame, 'x')
+    bounds, metrics = fused_proc.bounds, fused_proc.metrics
+    del fused_proc
+    base = reserved_gib()
+
+    def run(p, data):
+        rgb = p.debayer(p.load_bytes(data))
+        return p.tonemap(p.process_rgb(rgb, bounds), metrics)
+
     proc = mk((W, H), s, dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    rgb = proc.debayer(proc.load_bytes(frame))
-    rgb = proc.process_rgb(rgb, fused_proc.bounds)
-    out = proc.tonemap(rgb, fused_proc.metrics)
+    out = run(proc, frame)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.launches)
+    pool_gib = reserved_gib() - base
     d = int((out.to(torch.int16) - fused.to(torch.int16)).abs().max().item())
     log(f'piecewise {W}x{H} (load_bytes -> debayer -> process_rgb -> tonemap, FULL settings): '
-        f'max |diff| to the fused path {d} count(s); {ms:.2f} ms (first call); '
-        f'launches {launches}')
+        f'max |diff| to the fused path {d} count(s); {ms:.2f} ms (first call: eager, then the '
+        f'captures, {capture_seconds(proc):.3f} s of them); launches {launches}; the '
+        f'processor keeps {pool_gib:.2f} GiB reserved')
     if d > 1 or tuple(out.shape) != (H, W, 3) or out.dtype != torch.uint8:
         raise AssertionError(f'piecewise differs from fused by {d} counts, or has the wrong '
                              f'shape {tuple(out.shape)} {out.dtype}')
     for name, n in launches.items():
         if n != (1 if name in FULL_KERNELS else 0):
             raise AssertionError(f'piecewise launched {name} {n} times')
+    graphed_captures = {n: k for n, (_, k) in workspace_captures(proc).items() if k}
+
+    frames = synthetic_frames(W, H, 3, seed=710).to(dev)
+    eager = ungraphed(mk((W, H), s, dev))
+    turns = in_turns([('eager 1', lambda x: run(eager, x)), ('graphed 1', lambda x: run(proc, x)),
+                      ('graphed 2', lambda x: run(proc, x)), ('eager 2', lambda x: run(eager, x))],
+                     frames)
+    for label, (outs, _) in turns.items():
+        for k, (a, b) in enumerate(zip(outs, turns['eager 1'][0])):
+            if not torch.equal(a, b):
+                raise AssertionError(f'piecewise {label} frame {k + 1} differs from the eager copy')
+    if {n: k for n, (_, k) in workspace_captures(proc).items() if k} != graphed_captures:
+        raise AssertionError('a steady piecewise frame captured anew')
+    report = dict(first_frame_ms=ms, capture_s=capture_seconds(proc), pool_reserved_gib=pool_gib,
+                  steady_ms={k: 1e3 * sum(t) / len(t) for k, (_, t) in turns.items()})
+    log(f'piecewise {W}x{H} steady frames in turns, bit for bit with the eager copy; ms a frame: '
+        + ', '.join(f'{k} {v:.2f}' for k, v in report['steady_ms'].items()))
+    del turns
+    profiled = {'piecewise_graphed_frame': lambda: run(proc, frames[0]),
+                'piecewise_eager_frame': lambda: run(eager, frames[0])}
 
     w, h = 1024, 768
     data = synthetic_frames(w, h, 1, seed=5)[0]
@@ -1091,7 +1291,7 @@ def phase_piecewise(dev):
             f'{(a != b).mean():.2e} of values differ')
         if d > 1 or a.std() < 1.0:
             raise AssertionError(f'piecewise {label}: card and CPU differ by {d} counts, or flat')
-    return launches
+    return report, profiled
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1365,6 +1565,13 @@ def phase_laplacian(dev):
         f'({1e3 / report["config4_ms_per_frame"]:.2f} frames/s), the Laplacian alone '
         f'{report["config4_laplacian_ms"]:.3f} ms, peak {report["config4_peak_gib"]:.3f} GiB')
 
+    def lc_tonemap(x):
+        u1, u2, u3 = config4_frame(x, params, metrics)
+        return x + 1e-12 * (u1[..., 0] + u2[..., 0] + u3[..., 0]).to(torch.float32)
+
+    # as benchmarks/baseline_configs.py chains it: 2 passes
+    report['config4_chain'] = chained_case(f'config 4 {W}x{H}', lc_tonemap, lum, 2, per_pass={})
+
     # (b) local_laplacian, card against CPU, at full width
     strong = laplacian.LaplacianParams(shadows=0.6, highlights=1.4, clarity=0.3)
     for label, p in (('neutral', neutral), ('strong', strong)):
@@ -1436,8 +1643,9 @@ def phase_laplacian(dev):
     return report, profiled
 
 
-def profile_laplacian(report, profiled):
-    """Phase 11's device ops and idle share, after phase 10's profiling."""
+def profile_runs(report, profiled):
+    """The device ops and idle share of phase 9's and phase 11's runs,
+    after phase 10's profiling."""
     for label, fn in profiled.items():
         report[f'profile_{label}'] = device_busy(fn)
         log(f'profile of {label}: {report[f"profile_{label}"]}')
@@ -1537,10 +1745,12 @@ def phase_cli(dev):
 
 def sharded_case(label, fn, ref_fn, frames, blocks, report):
     """Run a sharded program and then its unsharded reference, each from its
-    first call; check the launches (one of each of FULL's kernels a band
-    block of a frame), 1 uint8 count and the EMA state against the test
-    bars (bounds atol 1e-6; metrics rtol 1e-5, atol 1e-6), and that no call
-    makes the host wait for the card; time both by CUDA events."""
+    first call (eager, then its graphs' captures); check the launches (one
+    of each of FULL's kernels a band block of a frame), 1 uint8 count and
+    the EMA state against the test bars (bounds atol 1e-6; metrics rtol
+    1e-5, atol 1e-6), that a second call of each (its graphs replayed)
+    equals its first bit for bit, and that no replay makes the host wait
+    for the card; time both replayed by CUDA events."""
     from tpu_darktable_torch import kernels
 
     torch.cuda.synchronize()
@@ -1549,6 +1759,12 @@ def sharded_case(label, fn, ref_fn, frames, blocks, report):
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
     ref, ref_bounds, ref_metrics = ref_fn()
+    # the second calls replay every graph: bit for bit with the first
+    for label_, f, first in (('sharded', fn, (out, bounds, metrics)),
+                             ('unsharded', ref_fn, (ref, ref_bounds, ref_metrics))):
+        if not all(torch.equal(a, b) for a, b in zip(f(), first)):
+            raise AssertionError(f'{label}: the {label_} program\'s replay differs from its '
+                                 'first call')
     d = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max().item())
     db = (bounds - ref_bounds).abs().max().item()
     dm = (metrics - ref_metrics).abs().max().item()
@@ -1581,6 +1797,7 @@ def phase_sharded(dev):
     grid, each against the unsharded program in the same call."""
     import tpu_darktable_torch as tt
     from tpu_darktable_torch import parallel
+    from tpu_darktable_torch._graph import Graphed
     from tpu_darktable_torch.pipeline.camera_settings import load_camera_settings_from_dir
 
     report = {}
@@ -1596,14 +1813,16 @@ def phase_sharded(dev):
                                         transforms=rig.transform, padding=rig.padding, mesh=mesh)
     mesh = parallel.make_mesh([dev] * 4)
     sharded, single = mk(mesh), mk(None)
-    run = lambda p: (torch.stack(list(p.process_image_set(image_set).values())), p.bounds,
-                     p.metrics)
+    def run(p):
+        """The image set from the EMA's first state: every call the same work."""
+        p.bounds = p.metrics = None
+        return torch.stack(list(p.process_image_set(image_set).values())), p.bounds, p.metrics
+
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     run(single)   # its eager first call and capture: the reference below is a replay
-    single.bounds = single.metrics = None
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
@@ -1613,14 +1832,24 @@ def phase_sharded(dev):
     log(f'the rig\'s unsharded processor ({len(names)} cameras a batch): {report["rig graph"]}')
     label = f'beetroot rig {w}x{h} Packed12_IDS, 12 cameras batch-sharded over {mesh.size} shards'
     sharded_case(label, lambda: run(sharded), lambda: run(single), len(names), 1, report)
+    report[label]['stage_captures'] = {
+        name: [c.seconds for c in g._captured.values()]
+        for name, g in zip(('front', 'back', 'tonemap'), sharded._fused.graphs)}
+    log(f'the rig\'s sharded stages: capture seconds {report[label]["stage_captures"]} (one '
+        'capture a stage for the four shards)')
+    if any(len(v) != 1 for v in report[label]['stage_captures'].values()):
+        raise AssertionError('the rig\'s shards did not share one capture a stage')
     out = sharded.process_image_set(image_set)
     if tuple(out['cam1'].shape) != (w, h, 3) or tuple(out['cam7'].shape) != (w, h, 3):
         raise AssertionError('the rig\'s per-camera rotations were not applied')
 
+    del sharded, single, out
+    report['rig reserved_gib_after'] = reserved_gib()
     art = cams['artichoke']
     s = art.image_processing
-    ref_fn = tt.build_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format, True,
-                                  rcd_strict_alias=False)
+    # the unsharded program, graphed as ImageProcessor graphs it
+    ref_fn = Graphed(tt.build_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format, True,
+                                          rcd_strict_alias=False))
     f32 = dict(dtype=torch.float32, device=dev)
     state0 = (torch.tensor(WB, **f32), torch.zeros(2, **f32), torch.zeros(5, **f32),
               torch.ones((), **f32))
@@ -1680,36 +1909,67 @@ def phase_viewer(dev):
             path = cam_dir / 'frame0.raw'
             path.write_bytes(synthetic_frames(W, H, 1, seed=1400)[0].numpy().tobytes())
             cams = settings_for_file(path)
+            base = reserved_gib()
             torch.cuda.synchronize()
             kernels.reset_launches()
             c = PipelineController(cams, [path], device=dev)
-            times, shapes = {}, {}
+            times, shapes, captured = {}, {}, {}
             for step, action in (('process_current', None),
                                  ("update_setting('tone_gamma', 2.0)",
                                   lambda: c.update_setting('tone_gamma', 2.0)),
                                  ("apply_preset('reinhard')", lambda: c.apply_preset('reinhard')),
                                  ('rotate', c.rotate), ('reset', c.reset)):
+                before = workspace_captures(c.processor)
                 if action is not None:
                     action()
                 t0 = time.perf_counter()
                 img = c.process_current()   # ends in the copy to the host
                 times[step] = (time.perf_counter() - t0) * 1e3
                 shapes[step] = img.shape
+                after = workspace_captures(c.processor)
+                # the workspaces that captured anew: a new workspace, or a new key
+                captured[step] = [n for n in WORKSPACES if after[n][1] and (
+                    after[n][0] != before[n][0] or set(after[n][1]) - set(before[n][1]))]
             if shapes['rotate'] != shapes["apply_preset('reinhard')"][1::-1] + (3,):
                 raise AssertionError(f'rotate did not turn the frame: {shapes}')
             launches = {k: v for k, v in kernels.launches.items() if v}
+            pool_gib = reserved_gib() - base
             data = encode_jpeg_bytes(img, quality=90, device=dev)
             log(f'viewer controller {cams.name} {W}x{H} on the card: ms of process_current after '
-                f'each step {({k: round(v, 2) for k, v in times.items()})}; shapes {shapes}; '
-                f'launches {launches}; '
+                f'each step {({k: round(v, 2) for k, v in times.items()})}; the workspaces that '
+                f'captured anew at each step {captured}; shapes {shapes}; launches {launches}; '
+                f'the controller keeps {pool_gib:.2f} GiB reserved; '
                 f'JPEG {len(data)} bytes, {data[:2].hex()}..{data[-2:].hex()}')
             missing = [k for k in FULL_KERNELS if not launches.get(k)]
             if missing or img.dtype != np.uint8 or img.std() < 1.0:
                 raise AssertionError(f'the viewer launched no {missing}, or its frame is flat')
             if data[:2] != b'\xff\xd8' or data[-2:] != b'\xff\xd9':
                 raise AssertionError('encode_jpeg_bytes gave no JFIF stream')
+            if captured["update_setting('tone_gamma', 2.0)"]:
+                raise AssertionError('a tone step captured anew: '
+                                     f'{captured["update_setting('tone_gamma', 2.0)"]}')
+
+            # steady frames: the controller replayed, in turns with an eager copy
+            eager = PipelineController(cams, [path], device=dev)
+            ungraphed(eager.processor)
+            keys = workspace_captures(c.processor)
+            turns = in_turns([('eager 1', lambda _: eager.process_current()),
+                              ('graphed 1', lambda _: c.process_current()),
+                              ('graphed 2', lambda _: c.process_current()),
+                              ('eager 2', lambda _: eager.process_current())], range(3))
+            for label, (outs, _) in turns.items():
+                if not all(np.array_equal(a, turns['eager 1'][0][0]) for a in outs):
+                    raise AssertionError(f'the viewer\'s {label} frames differ from the eager copy')
+            if workspace_captures(c.processor) != keys:
+                raise AssertionError('a steady viewer frame captured anew')
+            steady = {k: 1e3 * sum(t) / len(t) for k, (_, t) in turns.items()}
+            log(f'viewer process_current {W}x{H}, steady frames in turns, bit for bit with the '
+                'eager copy; ms a frame: ' + ', '.join(f'{k} {v:.2f}' for k, v in steady.items()))
             report.update(ms_process_current=times, shapes=shapes, launches=launches,
+                          captured_anew=captured, pool_reserved_gib=pool_gib,
+                          steady_ms=steady, capture_s=capture_seconds(c.processor),
                           jpeg_bytes=len(data))
+            del turns, eager, c
 
             small = dataclasses.replace(cams, image_size=(1024, 768))
             path = cam_dir / 'small.raw'
@@ -1741,11 +2001,16 @@ def main():
     dev = torch.device('cuda')
     seconds = {}
 
+    reserved = {}
+
     def timed(phase, *args):
         t0 = time.perf_counter()
         result = phase(*args)
         torch.cuda.synchronize()
-        seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        name = phase.__name__ + (' 2' if phase.__name__ in seconds else '')
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        # what the phase leaves reserved once its processors and graphs are gone
+        reserved[name] = round(reserved_gib(), 2)
         return result
 
     smi = timed(phase_card_and_build)
@@ -1754,25 +2019,32 @@ def main():
     timed(phase_card_vs_cpu, dev, full_settings())
     launches, full = timed(phase_full, dev)
     # each kernel's count from the run of its own path
-    launches.update({k: v for k, v in timed(phase_denoise, dev).items()
+    denoise_launches, config3 = timed(phase_denoise, dev)
+    launches.update({k: v for k, v in denoise_launches.items()
                      if k in ('wavelet_core', 'nlm_core')})
+    config2 = timed(phase_config2, dev)
     launches['grid_blur_xyz'] = timed(phase_general_bilateral, dev)['grid_blur_xyz']
     # the tile core's pipeline path: FULL with denoise_f16 off (phase 8)
     launches.update(timed(phase_wiener_route, dev))
-    timed(phase_piecewise, dev)
+    piecewise_report, piecewise_profiled = timed(phase_piecewise, dev)
     lap, lap_profiled = timed(phase_laplacian, dev)
     jpeg = timed(phase_jpeg, dev, smi)
-    lap = timed(profile_laplacian, lap, lap_profiled)
+    lap = timed(profile_runs, lap, lap_profiled)
+    piecewise_report = timed(profile_runs, piecewise_report, piecewise_profiled)
+    # the last references to phase 9's and 11's processors and their graphs
+    del lap_profiled, piecewise_profiled
     full.update(timed(profile_full, dev))
     cli = timed(phase_cli, dev)
     sharded = timed(phase_sharded, dev)
     viewer = timed(phase_viewer, dev)
     log(f'seconds by phase: {seconds}')
+    log(f'GiB reserved after each phase: {reserved}')
     for k in kern:
         k['launches'] = launches[k['name']]
     keys = ['name', 'route', 'source', 'replaces', 'launches', 'max_abs_err', 'ms', 'plain_ms',
             'bound_ms', 'bound_by', 'library_ms']
-    print(json.dumps({'full': full}))
+    print(json.dumps({'full': full, 'config2': config2, 'config3': config3,
+                      'piecewise': piecewise_report}))
     print(json.dumps({'jpeg': jpeg}))
     print(json.dumps({'laplacian': lap}))
     print(json.dumps({'cli': cli}))

@@ -516,3 +516,263 @@ def test_replay_makes_no_host_wait(dev):
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert out.shape == eager[1][0].shape
+
+
+# ---- the workspaces, the timing chains and the sharded stages as CUDA graphs
+
+def _card_input(kind, seed, dev, w=256, h=192):
+    rng = np.random.default_rng(seed)
+    if kind == 'mosaic':
+        return torch.from_numpy((0.2 + 0.6 * rng.random((h, w, 1))).astype(np.float32)).to(dev)
+    rgb = torch.from_numpy((0.15 + 0.7 * rng.random((h, w, 3))).astype(np.float32)).to(dev)
+    if kind == 'lum':
+        from tpu_darktable_torch.ops import color
+
+        return color.compute_luminance(rgb)
+    return rgb
+
+
+# label -> (the owner's maker on a device, its input's kind, a call with a
+# value: the noise, detail or nothing); the third call of each test takes
+# the second value
+def _workspace_cases():
+    import tpu_darktable_torch as tt
+
+    p, size = BayerPattern.RGGB, (256, 192)
+    strong = tt.LaplacianParams(shadows=0.6, highlights=1.4, clarity=0.3)
+    f16 = dict(spectral_dtype=torch.float16, storage_dtype=torch.float16)
+    return {
+        'bilinear5x5_demosaic': (lambda d: None, 'mosaic',
+                                 lambda o, x, v: tt.bilinear5x5_demosaic(x, p), (None, None)),
+        'Bilinear5x5': (lambda d: tt.Bilinear5x5(p), 'mosaic', lambda o, x, v: o.process(x),
+                        (None, None)),
+        'PPG': (lambda d: tt.PPG(d, size, p, median_threshold=2.0), 'mosaic',
+                lambda o, x, v: o.process(x), (None, None)),
+        'RCD': (lambda d: tt.RCD(d, size, p), 'mosaic', lambda o, x, v: o.process(x),
+                (None, None)),
+        'PostProcess': (lambda d: tt.PostProcess(d, size, p, color_smoothing_passes=3,
+                                                 green_eq_local=True, green_eq_global=True),
+                        'rgb', lambda o, x, v: o.process(x), (None, None)),
+        'Wiener.process': (lambda d: tt.Wiener(d, size), 'rgb',
+                           lambda o, x, v: o.process(x, v), (0.05, 0.02)),
+        'Wiener.process f16': (lambda d: tt.Wiener(d, size, **f16), 'rgb',
+                               lambda o, x, v: o.process(x, v), (0.05, 0.02)),
+        'Wiener.process_luminance': (lambda d: tt.Wiener(d, size), 'rgb',
+                                     lambda o, x, v: o.process_luminance(x, v), (0.05, 0.1)),
+        'Wiener.process_log_luminance': (lambda d: tt.Wiener(d, size, **f16), 'rgb',
+                                         lambda o, x, v: o.process_log_luminance(x, v),
+                                         (0.075, 0.03)),
+        'Wiener.process_log': (lambda d: tt.Wiener(d, size, overlap_factor=2), 'rgb',
+                               lambda o, x, v: o.process_log(x, v), (0.05, 0.08)),
+        'Laplacian.process': (lambda d: tt.Laplacian(d, size), 'lum',
+                              lambda o, x, v: o.process(x), (None, None)),
+        'Laplacian.process_rgb': (lambda d: tt.Laplacian(d, size, strong), 'rgb',
+                                  lambda o, x, v: o.process_rgb(x), (None, None)),
+        'Bilateral.process': (lambda d: tt.Bilateral(d, size, sigma_s=2.0, sigma_r=0.2), 'lum',
+                              lambda o, x, v: o.process(x, v), (0.4, -0.6)),
+        'Bilateral.process_rgb sigma_s 3': (
+            lambda d: tt.Bilateral(d, size, sigma_s=3.0, sigma_r=0.2), 'rgb',
+            lambda o, x, v: o.process_rgb(x, v), (0.4, 1.1)),
+        'Bilateral.process_log_rgb': (lambda d: tt.Bilateral(d, size, sigma_s=2.0, sigma_r=0.2),
+                                      'rgb', lambda o, x, v: o.process_log_rgb(x, v, 1e-4),
+                                      (0.4, 0.9)),
+    }
+
+
+WORKSPACE_CASES = ['bilinear5x5_demosaic', 'Bilinear5x5', 'PPG', 'RCD', 'PostProcess',
+                   'Wiener.process', 'Wiener.process f16', 'Wiener.process_luminance',
+                   'Wiener.process_log_luminance', 'Wiener.process_log', 'Laplacian.process',
+                   'Laplacian.process_rgb', 'Bilateral.process', 'Bilateral.process_rgb sigma_s 3',
+                   'Bilateral.process_log_rgb']
+
+
+def _eager_owner(make, dev):
+    """The same class with its graphs taken out: each call runs eagerly."""
+    owner = make(dev)
+    if owner is None:
+        return None
+    owner._graphs = owner._graphs.fn
+    return owner
+
+
+def _eager_call(call, owner, x, v):
+    from tpu_darktable_torch import debayer
+
+    if owner is None:
+        return debayer._bilinear.fn(x, BayerPattern.RGGB)
+    return call(owner, x, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('label', WORKSPACE_CASES)
+def test_graphed_workspace_equals_eager(dev, label):
+    """Three calls on new inputs, the third with a changed noise or
+    detail: the first eager and captured, then replays (or a new capture
+    for a new detail), each bit for bit with the eager method and with the
+    eager method's launches."""
+    from tpu_darktable_torch import debayer
+
+    make, kind, call, (v1, v2) = _workspace_cases()[label]
+    owner, eager = make(dev), _eager_owner(make, dev)
+    graphs = debayer._bilinear if owner is None else owner._graphs
+    graphs._captured.clear()
+    for k, v in enumerate((v1, v1, v2)):
+        x = _card_input(kind, 30 + k, dev)
+        kernels.reset_launches()
+        want = _eager_call(call, eager, x, v)
+        want_launches = dict(kernels.launches)
+        kernels.reset_launches()
+        got = call(owner, x, v)
+        assert torch.equal(got, want), (label, k)
+        assert dict(kernels.launches) == want_launches, (label, k)
+    keys = 2 if label.startswith('Bilateral') else 1
+    assert len(graphs._captured) == keys
+
+
+@pytest.mark.cuda
+def test_processor_graphs_replay_in_any_order(dev):
+    """One processor's batched program and its four piecewise workspaces
+    share a memory pool: captured in one order and replayed in others, each
+    output equals the eager program's bit for bit."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+
+    w, h = 256, 192
+    s = case_settings('full')
+    frames = case_frames(w, h, 6, seed=23).to(dev)
+    proc = tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                             device=dev, white_balance=(1.2, 1.0, 1.1))
+    ref = tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                            device=dev, white_balance=(1.2, 1.0, 1.1))
+    ref._fused = ref._fused.fn
+    for name in ('rcd_workspace', 'postprocess_workspace', 'wiener_workspace', 'bil_workspace'):
+        ws = getattr(ref, name)
+        ws._graphs = ws._graphs.fn
+
+    def piecewise(p, frame):
+        rgb = p.debayer(p.load_bytes(frame))
+        return p.process_rgb(rgb, tt.compute_image_bounds([rgb], stride=8))
+
+    def batched(p, batch):
+        p.bounds = p.metrics = None
+        return p.process_batch(batch), p.bounds, p.metrics
+
+    steps = [('batched', frames[0:2]), ('piecewise', frames[2]), ('piecewise', frames[3]),
+             ('batched', frames[4:6]), ('piecewise', frames[5]), ('batched', frames[0:2])]
+    for k, (kind, data) in enumerate(steps):
+        run = batched if kind == 'batched' else piecewise
+        got, want = run(proc, data), run(ref, data)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (k, kind)
+    assert len(proc._fused._captured) == 1
+    assert all(len(getattr(proc, n)._graphs._captured) == 1
+               for n in ('rcd_workspace', 'postprocess_workspace', 'wiener_workspace',
+                         'bil_workspace'))
+
+
+@pytest.mark.cuda
+def test_workspace_replay_outlives_the_device_caches(dev):
+    """After the capture, every device cache cleared, the allocator's cache
+    emptied and the freed memory overwritten: each workspace's replay still
+    equals the eager method bit for bit."""
+    import gc
+    from tpu_darktable_torch import _device
+
+    cases = _workspace_cases()
+    for label in ('PPG', 'RCD', 'PostProcess', 'Wiener.process_log_luminance',
+                  'Laplacian.process_rgb', 'Bilateral.process_rgb sigma_s 3'):
+        make, kind, call, (v1, _) = cases[label]
+        owner = make(dev)
+        call(owner, _card_input(kind, 40, dev), v1)
+        x = _card_input(kind, 41, dev)
+        want = call(_eager_owner(make, dev), x, v1)
+        _device.clear_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        junk = [torch.full((1 << 20,), float('nan'), device=dev) for _ in range(64)]
+        got = call(owner, x, v1)
+        del junk
+        assert torch.equal(got, want), label
+
+
+@pytest.mark.cuda
+def test_sharded_processor_replays_bit_for_bit(dev):
+    """ImageProcessor(mesh=make_mesh([cuda] * 4)) over three batches of 8:
+    each stage captured once for all four shards and replayed, every batch
+    bit for bit with the unsharded graphed processor, and the launches one
+    of each of FULL's kernels a frame."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import parallel
+
+    w, h = 256, 192
+    s = case_settings('full')
+    frames = case_frames(w, h, 24, seed=24).to(dev)
+    mk = lambda mesh: tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                                        device=dev, white_balance=(1.2, 1.0, 1.1), mesh=mesh)
+    sharded, single = mk(parallel.make_mesh([dev] * 4)), mk(None)
+    for k in range(3):
+        batch = frames[8 * k:8 * (k + 1)]
+        kernels.reset_launches()
+        out = sharded.process_batch(batch)
+        launches = dict(kernels.launches)
+        assert torch.equal(out, single.process_batch(batch)), k
+        assert torch.equal(sharded.bounds, single.bounds)
+        assert torch.equal(sharded.metrics, single.metrics)
+        assert all(launches[n] == 8 for n in ('rcd_interior', 'color_smooth_diffs',
+                                              'bilateral_band')), (k, launches)
+    assert [len(g._captured) for g in sharded._fused.graphs] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_benchmark_op_replays_its_chain(dev):
+    """benchmark_op's chain on the card: captured once, and the launches
+    of the timed replays counted (RCD: one rcd_interior a call)."""
+    from tpu_darktable_torch.ops import rcd
+    from tpu_darktable_torch.utils import timing
+
+    x = _card_input('mosaic', 50, dev)[..., 0]
+    kernels.reset_launches()
+    dt = timing.benchmark_op(lambda v: rcd.rcd_demosaic(v, BayerPattern.RGGB)[..., 1], x,
+                             iters=3, warmup=2)
+    # the eager first call, then two warm-up replays and the timed one
+    assert dt > 0 and kernels.launches['rcd_interior'] == 3 * 4
+
+
+@pytest.mark.cuda
+def test_sharded_graphs_over_distinct_cards(dev):
+    """With two cards or more: the batch-sharded processor and the 3-band
+    program over distinct cards, each card capturing its own stages (one
+    capture a stage and card), equal to the unsharded program on the
+    first card (batch sharding bit for bit, bands within 1 count)."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import parallel
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip('needs two CUDA devices or more')
+    cards = [torch.device('cuda', i) for i in range(n)]
+    w, h = 256, 192
+    s = case_settings('full')
+    frames = case_frames(w, h, 2 * n, seed=25).to(cards[0])
+    mk = lambda mesh: tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, s,
+                                        device=cards[0], white_balance=(1.2, 1.0, 1.1),
+                                        mesh=mesh)
+    sharded, single = mk(parallel.make_mesh(cards)), mk(None)
+    for k in range(3):
+        assert torch.equal(sharded.process_batch(frames), single.process_batch(frames)), k
+        assert torch.equal(sharded.bounds, single.bounds)
+    assert [len(g._captured) for g in sharded._fused.graphs] == [n, n, n]
+    args = (s, (w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, True)
+    f32 = dict(dtype=torch.float32, device=cards[0])
+    state = (torch.tensor([1.2, 1.0, 1.1], **f32), torch.zeros(2, **f32), torch.zeros(5, **f32),
+             torch.ones((), **f32))
+    bands = parallel.build_spatial_pipeline_fn(
+        *args, parallel.make_mesh([cards[i % n] for i in range(3)]), halo=64)
+    want = tt.build_pipeline_fn(*args, rcd_strict_alias=False)(frames[:1], *state)[0][0]
+    for _ in range(2):
+        out = bands(frames[0], *state)[0]
+        assert out.device == cards[0]
+        assert (out.int() - want.int()).abs().max().item() <= 1

@@ -1,16 +1,20 @@
-"""The compiled program of the batched entry point (counterpart of
-tpu_darktable/_jit.py and of `self._fused = jax.jit(fused)` in the JAX
-package's ImageProcessor).
+"""The compiled programs of the port (counterpart of tpu_darktable/_jit.py
+and of every `jax.jit` of the JAX package: the batched program, the
+workspace classes, the timing chains and the sharded programs' stages).
 
-XLA compiles a batch into one executable, cached on its inputs' shapes, and
-runs it as one dispatch.  Here `Graphed(fn)` does the same for a function
-of CUDA tensors: the first call for a key (each tensor argument's shape,
-dtype and device) runs `fn` eagerly, which builds the kernels and fills the
-device caches, and returns that result; then `fn` is captured at once into
-a CUDA graph over static copies of the arguments.  Each later call with
-that key copies its arguments into the static buffers, replays the graph
-on the current stream and returns clones of its outputs, so nothing a
-caller holds changes on the next call.  Arguments on the CPU go straight
+XLA compiles a function into one executable, cached on its inputs' shapes
+and its static arguments, and runs it as one dispatch.  Here `Graphed(fn)`
+does the same for a function of CUDA tensors.  The capture key is each
+tensor argument's shape, dtype and device and the value of every other
+argument (`jit_with_static`'s static kwargs): a Python number the function
+uses is frozen into the graph, so it must be in the key, or be passed as
+a tensor, which the replay copies in.  The first call for a key runs `fn`
+eagerly, which builds the kernels and fills the device caches, and returns
+that result; then `fn` is captured at once into a CUDA graph over static
+copies of the tensor arguments.  Each later call with that key copies its
+tensor arguments into the static buffers, replays the graph on the current
+stream and returns clones of its outputs, so nothing a caller holds
+changes on the next call.  Arguments with no tensor on a card go straight
 to `fn`: the CPU runs the program eagerly.
 
 What a captured graph needs after its capture:
@@ -23,19 +27,35 @@ What a captured graph needs after its capture:
   eager fallback.
 
 The kernel launch counts (kernels.launches) mean launches that ran: a
-capture adds nothing, each replay adds what its capture recorded.  The
-graphs of one wrapper share one memory pool, since they replay one after
-another on one stream; the pool and the graphs go with the wrapper.
+capture adds nothing, each replay adds what its capture recorded.
+
+The captures of one wrapper sit in a bounded LRU (`_MAXSIZE` keys); a
+dropped entry frees its graph, its static buffers and outputs, and the
+constants it held.  The graphs of one owner share a memory pool
+(`GraphPool`, one pool a device): an `ImageProcessor` gives its batched
+program, its workspaces and its sharded stages one pool.  That is safe
+because they replay one at a time on one stream, each replay clones its
+outputs before any other graph runs, and the static inputs are cloned
+outside the pool.  Memory a dropped graph used goes back to the pool, for
+the pool's later captures.  A pool with no graph left keeps its memory
+reserved until torch.cuda.empty_cache(), or until an allocation outside a
+capture finds the card full.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import torch
 
 from . import _device, kernels
+
+# the captures a Graphed wrapper keeps (its least recently used goes first)
+_MAXSIZE = 8
 
 
 def _on_card(t) -> bool:
@@ -50,16 +70,46 @@ def _new_graph():
     return torch.cuda.CUDAGraph()
 
 
+# a side stream a device to capture on (torch.cuda.graph's default is one
+# stream, on the device that was current at its first use)
+_capture_streams: dict[int, object] = {}
+
+
+@contextlib.contextmanager
 def _capturing(graph, pool):
-    # thread_local: a capture may start while other threads (the streaming
-    # executor's JPEG workers) still copy from the card
-    return torch.cuda.graph(graph, pool=pool, capture_error_mode='thread_local')
+    """Capture into `graph` on the current device's side stream, after the
+    work the current stream has enqueued.  Unlike torch.cuda.graph, no
+    synchronize and no emptying of the device and host caches first: a
+    capture records work without running it, so it needs no wait, and the
+    two cost a workspace's first call tens of ms on an H100.  So a
+    capture cannot hand the allocator's cached blocks back to the card:
+    what its pool needs must be free beside them.  thread_local: a capture
+    may start while other threads (the streaming executor's JPEG workers)
+    still copy from the card."""
+    index = torch.cuda.current_device()
+    if index not in _capture_streams:
+        _capture_streams[index] = torch.cuda.Stream(index)
+    stream = _capture_streams[index]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool, capture_error_mode='thread_local')
+        try:
+            yield
+        finally:
+            graph.capture_end()
+
+
+def _record(graph, pool, fn, inputs):
+    """fn(*inputs) captured into `graph`; its outputs."""
+    with _capturing(graph, pool):
+        return fn(*inputs)
 
 
 def capture_key(args) -> tuple:
-    """What the compiled program is specialised on: each argument's shape,
-    dtype and device."""
-    return tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+    """What the compiled program is specialised on: each tensor argument's
+    shape, dtype and device, and every other argument's type and value."""
+    return tuple((tuple(a.shape), a.dtype, a.device) if isinstance(a, torch.Tensor)
+                 else (type(a), a) for a in args)
 
 
 def _device_index(args) -> int:
@@ -69,11 +119,31 @@ def _device_index(args) -> int:
     return dev.index if dev.type == 'cuda' else -1
 
 
+class GraphPool:
+    """The CUDA graph memory pool of the Graphed wrappers that share it: one
+    pool id a device, made at the first capture there.  Once every graph
+    of a device's pool is gone, PyTorch's allocators hold the id retired
+    until an empty_cache, so the next capture there takes a new id."""
+
+    def __init__(self):
+        self._ids: dict[int, tuple[object, weakref.WeakSet]] = {}
+
+    def handle(self, index: int, graph):
+        """The pool id for capturing `graph` on CUDA device `index`."""
+        pool, graphs = self._ids.get(index, (None, ()))
+        if not graphs:
+            pool, graphs = _new_pool(), weakref.WeakSet()
+            self._ids[index] = (pool, graphs)
+        graphs.add(graph)
+        return pool
+
+
 @dataclass
 class _Captured:
     graph: object
-    inputs: tuple            # the static buffers the graph reads
-    outputs: tuple           # the static outputs it writes
+    inputs: tuple            # the arguments: static buffers for the tensors
+    outputs: tuple           # the static outputs the graph writes
+    single: bool             # fn returned one tensor, not a tuple
     held: list               # the device constants it read
     launches: dict           # kernel launches a replay runs, by name
     seconds: float           # host seconds the capture took
@@ -82,22 +152,25 @@ class _Captured:
     def replay(self, args):
         with torch.cuda.device(self.index):
             for buf, a in zip(self.inputs, args):
-                buf.copy_(a)
+                if isinstance(buf, torch.Tensor):
+                    buf.copy_(a)
             self.graph.replay()
             out = tuple(t.clone() for t in self.outputs)
         kernels.add_launches(self.launches)
-        return out
+        return out[0] if self.single else out
 
 
 class Graphed:
-    """`fn` (positional tensor arguments -> a tuple of tensors) captured
-    once per capture key and replayed; see the module docstring."""
+    """`fn` (positional arguments: tensors and hashable values -> a tensor
+    or a tuple of tensors) captured once per capture key and replayed; see
+    the module docstring.  `pool` is the GraphPool its graphs allocate
+    from (a new one if None)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, pool: GraphPool | None = None):
         self.fn = fn
         self.stages = getattr(fn, 'stages', None)
-        self._captured: dict[tuple, _Captured] = {}
-        self._pool = None
+        self.pool = GraphPool() if pool is None else pool
+        self._captured: OrderedDict[tuple, _Captured] = OrderedDict()
 
     def __call__(self, *args):
         if not any(_on_card(a) for a in args):
@@ -105,26 +178,30 @@ class Graphed:
         key = capture_key(args)
         entry = self._captured.get(key)
         if entry is not None:
+            self._captured.move_to_end(key)
             return entry.replay(args)
         out = self.fn(*args)
+        while len(self._captured) >= _MAXSIZE:
+            self._captured.popitem(last=False)
         self._captured[key] = self._capture(args, key)
         return out
 
     def _capture(self, args, key) -> _Captured:
-        inputs = tuple(a.clone() for a in args)
-        if self._pool is None:
-            self._pool = _new_pool()
+        inputs = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
         graph = _new_graph()
         index = _device_index(args)
         t0 = time.perf_counter()
         try:
             with kernels.uncounted() as made, _device.holding() as held, \
-                    torch.cuda.device(index), _capturing(graph, self._pool):
-                outputs = self.fn(*inputs)
+                    torch.cuda.device(index):
+                outputs = _record(graph, self.pool.handle(index, graph), self.fn, inputs)
         except Exception as e:
-            raise RuntimeError(f'capturing the batched program as a CUDA graph failed for '
-                               f'inputs {key}: {e}') from e
-        return _Captured(graph, inputs, outputs, held, made, time.perf_counter() - t0, index)
+            name = getattr(self.fn, '__qualname__', None) or repr(self.fn)
+            raise RuntimeError(f'capturing {name} as a CUDA graph failed for inputs {key}: '
+                               f'{e}') from e
+        single = isinstance(outputs, torch.Tensor)
+        return _Captured(graph, inputs, (outputs,) if single else tuple(outputs), single, held,
+                         made, time.perf_counter() - t0, index)
 
 
-__all__ = ['Graphed', 'capture_key']
+__all__ = ['GraphPool', 'Graphed', 'capture_key']

@@ -2,8 +2,12 @@
 
 The workspace classes (PPG / RCD / PostProcess) keep the reference's
 constructor signatures (device, image_size, pattern, ...) and check the
-input shape against the geometry they were built for; they hold no buffers.
-Each runs on one device: the card unless `device='cpu'`.
+input shape against the geometry they were built for.  Each runs on one
+device: the card unless `device='cpu'`.  Where the JAX package jits a
+workspace's function with its constructor arguments static, the port runs
+it through a `_graph.Graphed` keyed on those arguments: on the card each
+input shape is captured once as a CUDA graph and replayed; the shape check
+and the move to the device stay outside the graph.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ._device import resolve_device
+from ._graph import Graphed
 from .ops import demosaic as _demosaic
 from .ops import postprocess as _postprocess
 from .ops import rcd as _rcd
@@ -26,10 +31,14 @@ from .ops.packed import (
 )
 
 
+# bilinear5x5_demosaic's captures, keyed on the pattern and the input shape
+_bilinear = Graphed(_demosaic.bilinear5x5_demosaic)
+
+
 def bilinear5x5_demosaic(image: torch.Tensor, bayer_pattern: BayerPattern) -> torch.Tensor:
     """5x5 bilinear demosaic of an (H, W, 1) Bayer image -> (H, W, 3), on
     the image's device."""
-    return _demosaic.bilinear5x5_demosaic(image, bayer_pattern)
+    return _bilinear(image, bayer_pattern)
 
 
 class Bilinear5x5:
@@ -38,11 +47,12 @@ class Bilinear5x5:
 
     def __init__(self, bayer_pattern: BayerPattern):
         self.bayer_pattern = bayer_pattern
+        self._graphs = Graphed(_demosaic.bilinear5x5_demosaic)
 
     def process(self, image):
         if not isinstance(image, torch.Tensor):
             image = torch.as_tensor(image, device=resolve_device(None))
-        return _demosaic.bilinear5x5_demosaic(image, self.bayer_pattern)
+        return self._graphs(image, self.bayer_pattern)
 
 
 def _norm_workspace_args(device, image_size):
@@ -56,14 +66,17 @@ def _norm_workspace_args(device, image_size):
 
 
 class _Workspace:
-    """One image geometry on one device; `process` checks the input shape."""
+    """One image geometry on one device; `process` checks the input shape
+    and runs `_program(image, *static arguments)` through its graphs."""
 
     _channels = 1
+    _program = None
 
     def __init__(self, device, image_size):
         device, image_size = _norm_workspace_args(device, image_size)
         self.device = resolve_device(device)
         self._width, self._height = image_size
+        self._graphs = Graphed(self._program)
 
     def _checked(self, input_tensor) -> torch.Tensor:
         expected = (self._height, self._width, self._channels)
@@ -80,6 +93,8 @@ class _Workspace:
 class PPG(_Workspace):
     """PPG demosaic workspace."""
 
+    _program = staticmethod(_demosaic.ppg_demosaic)
+
     def __init__(self, device=None, image_size: tuple[int, int] | None = None,
                  bayer_pattern: BayerPattern = BayerPattern.RGGB, *,
                  median_threshold: float = 0.0):
@@ -88,8 +103,7 @@ class PPG(_Workspace):
         self._median_threshold = float(median_threshold)
 
     def process(self, input_tensor):
-        return _demosaic.ppg_demosaic(self._checked(input_tensor), self._pattern,
-                                      median_threshold=self._median_threshold)
+        return self._graphs(self._checked(input_tensor), self._pattern, self._median_threshold)
 
     @property
     def median_threshold(self) -> float:
@@ -99,19 +113,22 @@ class PPG(_Workspace):
 class RCD(_Workspace):
     """RCD demosaic workspace."""
 
+    _program = staticmethod(_rcd.rcd_demosaic)
+
     def __init__(self, device=None, image_size: tuple[int, int] | None = None,
                  bayer_pattern: BayerPattern = BayerPattern.RGGB):
         super().__init__(device, image_size)
         self._pattern = bayer_pattern
 
     def process(self, input_tensor):
-        return _rcd.rcd_demosaic(self._checked(input_tensor), self._pattern)
+        return self._graphs(self._checked(input_tensor), self._pattern)
 
 
 class PostProcess(_Workspace):
     """Colour-smoothing / green-equilibration workspace."""
 
     _channels = 3
+    _program = staticmethod(_postprocess.postprocess)
 
     def __init__(self, device=None, image_size: tuple[int, int] | None = None,
                  bayer_pattern: BayerPattern = BayerPattern.RGGB, *,
@@ -125,12 +142,9 @@ class PostProcess(_Workspace):
         self._green_eq_threshold = float(green_eq_threshold)
 
     def process(self, input_tensor):
-        return _postprocess.postprocess(
-            self._checked(input_tensor), self._pattern,
-            color_smoothing_passes=self._color_smoothing_passes,
-            green_eq_local_enabled=self._green_eq_local,
-            green_eq_global_enabled=self._green_eq_global,
-            green_eq_threshold=self._green_eq_threshold)
+        return self._graphs(self._checked(input_tensor), self._pattern,
+                            self._color_smoothing_passes, self._green_eq_local,
+                            self._green_eq_global, self._green_eq_threshold)
 
     @property
     def color_smoothing_passes(self) -> int:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import constant_on, to_device
 from ..kernels.nlm import nlm_core
 from ..kernels.wavelet import wavelet_core
 
@@ -45,7 +46,9 @@ def wavelet_denoise(image: torch.Tensor, sigma, levels: int = 4,
         Denoised image, same shape.
     """
     planes, squeeze = _planes(image)
-    sig = torch.as_tensor(sigma, dtype=_F32, device=planes.device).reshape(-1)
+    # a host sigma comes from the device cache: no copy a call (nor in a CUDA graph)
+    sig = (to_device(sigma, planes.device, _F32) if isinstance(sigma, torch.Tensor)
+           else constant_on(sigma, planes.device, _F32)).reshape(-1)
     sig = sig.expand(planes.shape[0]).contiguous()
     out = wavelet_core(planes, threshold_scale * sig, levels=levels)
     return _image(out, squeeze)

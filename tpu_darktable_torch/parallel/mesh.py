@@ -23,6 +23,13 @@ Statistics: the fused program reduces the stride-8 sample planes of the
 whole batch.  A sharded program gathers every shard's planes in global
 order on the first shard's device and reduces them with the same
 functions, so batch sharding is bit-equal to the unsharded program.
+
+Compiled stages: where XLA compiles the shard_map body once for every
+device, each shard's stage here runs through a `_graph.Graphed` keyed on
+its block's shape and device: on a card the first shard of a shape runs
+eagerly and captures, every later one (the other shards of that card,
+the next batches) replays.  A graph never spans two devices; the
+collectives stay eager copies between the graphs.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from .._device import to_device
+from .._graph import GraphPool, Graphed
 from ..pipeline.image_processor import ema_bounds, ema_metrics
 
 
@@ -160,27 +168,37 @@ def sharded_pipeline(fused_fn, mesh: Mesh, axis_name: str = 'batch'):
     metrics reduce the gathered samples of all shards; the uint8 frames
     and the state come back on the first shard's device.
     """
+    return _sharded_pipeline(fused_fn, mesh, axis_name, None)
+
+
+def _sharded_pipeline(fused_fn, mesh: Mesh, axis_name: str, pool: GraphPool | None):
+    """sharded_pipeline with its stages' graphs on `pool` (a new pool if
+    None): ImageProcessor(mesh=...) gives its own."""
     stages = getattr(fused_fn, 'stages', None)
     if stages is None:
         raise TypeError('sharded_pipeline takes a build_pipeline_fn result')
     devices = mesh.axis_devices(axis_name)
     first = devices[0]
+    pool = GraphPool() if pool is None else pool
+    front, back, tonemap = (Graphed(f, pool=pool) for f in (stages.front, stages.back,
+                                                            stages.tonemap))
 
     def run(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
         shards = (list(bytes_batch) if isinstance(bytes_batch, (list, tuple))
                   else shard_batch(bytes_batch, mesh, axis_name))
         wb = replicate(wb_gains, devices)
         alpha = put(alpha, first)
-        fronts = [stages.front(x, wb[d]) for x, d in zip(shards, devices)]
+        fronts = [front(x, wb[d]) for x, d in zip(shards, devices)]
         bounds = ema_bounds(gather([s for _, s in fronts], first), put(bounds_in, first), alpha)
         on = replicate(bounds, devices)
-        backs = [stages.back(rgb, s, on[d]) for (rgb, s), d in zip(fronts, devices)]
+        backs = [back(rgb, s, on[d]) for (rgb, s), d in zip(fronts, devices)]
         del fronts
         metrics = ema_metrics(gather([s for _, s in backs], first), put(metrics_in, first), alpha)
         on = replicate(metrics, devices)
-        out = gather([stages.tonemap(rgb, on[d]) for (rgb, _), d in zip(backs, devices)], first)
+        out = gather([tonemap(rgb, on[d]) for (rgb, _), d in zip(backs, devices)], first)
         return out, bounds, metrics
 
+    run.graphs = (front, back, tonemap)
     return run
 
 

@@ -11,6 +11,11 @@ RCD's border ladder runs where it should; everywhere else the window's own
 edge effects (the border ladder reaches 32 px, the stencils 8) fall
 outside the band.  RCD runs with strict_alias=False, which makes the block
 decomposition exact.  The band geometry is a Python int for each shard.
+
+Every window is one block high, so on a card the bands' demosaics share
+one CUDA graph a block shape, device, pattern and algorithm
+(`_graph.Graphed`): the first band runs eagerly and captures, the others
+replay.  The band slices and the gather stay outside the graph.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._graph import Graphed
 from ..ops import demosaic as _demosaic
 from ..ops import rcd as _rcd
 from ..ops.bayer import BayerPattern
@@ -62,8 +68,8 @@ def spatial_shard_map_demosaic(bayer, mesh: Mesh, pattern: BayerPattern, algorit
     band, block, windows = band_windows(h, n, halo)
     if block > h:
         # The reference's own rule: a frame too small to shard runs unsharded.
-        return _demosaic_one(put(bayer, devices[0]), pattern, algorithm)
-    outs = [_demosaic_one(put(bayer[win:win + block], d), pattern, algorithm)[off:off + band]
+        return _demosaic_block(put(bayer, devices[0]), pattern, algorithm)
+    outs = [_demosaic_block(put(bayer[win:win + block], d), pattern, algorithm)[off:off + band]
             for (win, off), d in zip(windows, devices)]
     return gather(outs, devices[0])
 
@@ -76,6 +82,10 @@ def _demosaic_one(bayer, pattern: BayerPattern, algorithm: str):
     if algorithm == 'bilinear':
         return _demosaic.bilinear5x5_demosaic(bayer, pattern)
     raise ValueError(f'unknown algorithm: {algorithm}')
+
+
+# the band demosaic's captures, keyed on the block, pattern and algorithm
+_demosaic_block = Graphed(_demosaic_one)
 
 
 __all__ = ['DEFAULT_HALO', 'spatial_shard_map_demosaic']

@@ -25,6 +25,15 @@ The global quantities cross the shards explicitly:
 axis, each frame's rows over the band axis; bounds and metrics are
 batch-global, the green ratio and the Laplacian per frame.
 
+Compiled stages: the stage groups between the collectives run through
+`_graph.Graphed`, keyed on the block's shape and device: decode + WB +
+demosaic + colour smoothing with the green-eq sums of the band's rows (its
+row mask a tensor argument, so the blocks of one shape share a capture);
+normalize + Wiener + bilateral; the tonemap.  On a card the first block of
+a shape runs eagerly and captures, the others replay.  The collectives,
+the green-eq scaling, the sample and band slices and the Laplacian's
+full-frame path stay eager between the graphs.
+
 Alignment (checked, with the JAX package's messages): band and halo
 multiples of 8, and an integer bilateral sigma_s dividing both, so the
 bilateral grid's cells align with the frame's.  At 4096x3000 that allows
@@ -36,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._graph import GraphPool, Graphed
 from ..ops import color as _color
 from ..ops import postprocess as _postprocess
 from ..ops.bayer import BayerPattern, PackedFormat
@@ -77,23 +87,46 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
     first = groups[0][0]
     all_devices = [d for g in groups for d in g]
 
+    def front_block(rows, wb, in_band):
+        """decode, WB, demosaic of a block; with postprocess also its
+        colour smoothing and the green-eq sums of the rows in `in_band`."""
+        b = st.demosaic(st.decode(rows, wb))
+        if not settings.postprocess:
+            return b
+        b = _postprocess.color_smoothing(b, settings.color_smoothing_passes)
+        return (b, *_postprocess.green_eq_sums(b, bayer_pattern, in_band))
+
+    def back_block(b, bounds):
+        """normalize, Wiener, bilateral of a block."""
+        b = normalize_image(b, bounds)
+        if settings.enable_denoise:
+            b = st.denoise(b)
+        if settings.enable_bilateral:
+            b = st.bilateral(b)
+        return b
+
+    pool = GraphPool()
+    front_graph, back_graph, tonemap_graph = (Graphed(f, pool=pool)
+                                              for f in (front_block, back_block, st.tonemap))
+    in_band = {}   # (band offset, device) -> the block's (block, 1) row mask
+
+    def band_mask(off, d):
+        if (off, d) not in in_band:
+            r = torch.arange(block, device=d)[:, None]
+            in_band[off, d] = (r >= off) & (r < off + band)
+        return in_band[off, d]
+
     def front_frame(rows, group, wb):
         """decode, WB, demosaic, postprocess on the frame's band blocks."""
-        blocks = [st.demosaic(st.decode(put(rows[win:win + block], d), wb[d]))
-                  for (win, _), d in zip(windows, group)]
+        fronts = [front_graph(put(rows[win:win + block], d), wb[d], band_mask(off, d))
+                  for (win, off), d in zip(windows, group)]
         if not settings.postprocess:
-            return blocks
-        blocks = [_postprocess.color_smoothing(b, settings.color_smoothing_passes)
-                  for b in blocks]
+            return fronts
         # green equilibration over the frame: sums of the bands' own rows
-        sums = []
-        for b, (_, off), d in zip(blocks, windows, group):
-            r = torch.arange(block, device=d)[:, None]
-            sums.append(_postprocess.green_eq_sums(b, bayer_pattern, (r >= off) & (r < off + band)))
-        s1 = reduce_sum([s[0] for s in sums], group[0])
-        s2 = reduce_sum([s[1] for s in sums], group[0])
+        s1 = reduce_sum([s for _, s, _ in fronts], group[0])
+        s2 = reduce_sum([s for _, _, s in fronts], group[0])
         return [_postprocess.green_eq_apply(b, bayer_pattern, put(s1, d), put(s2, d))
-                for b, d in zip(blocks, group)]
+                for (b, _, _), d in zip(fronts, group)]
 
     def frame_samples(blocks):
         """The frame's stride-8 sample plane from its blocks' own rows."""
@@ -109,14 +142,7 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
 
     def back_frame(blocks, group, bounds):
         """normalize, Wiener, bilateral, Laplacian on the frame's blocks."""
-        out = []
-        for b, d in zip(blocks, group):
-            b = normalize_image(b, bounds[d])
-            if settings.enable_denoise:
-                b = st.denoise(b)
-            if settings.enable_bilateral:
-                b = st.bilateral(b)
-            out.append(b)
+        out = [back_graph(b, bounds[d]) for b, d in zip(blocks, group)]
         return laplacian_frame(out, group) if settings.enable_laplacian else out
 
     def run(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
@@ -139,7 +165,7 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
                               put(metrics_in, first), alpha)
         on = replicate(metrics, all_devices)
         out = torch.stack([
-            gather([st.tonemap(b, on[d])[off:off + band]
+            gather([tonemap_graph(b, on[d])[off:off + band]
                     for b, (_, off), d in zip(frame, windows, owner[f])], first)
             for f, frame in enumerate(blocks)])
         return out, bounds, metrics

@@ -11,15 +11,19 @@ frame deep.  The EMA state (bounds (2,), metrics (5,)) stays on the device
 between batches: there is no host sync on the path.  On the card the
 batched program is captured as a CUDA graph on its first call for each
 input shape and replayed after (_graph.py, where JAX writes
-jax.jit(fused)); on the CPU it runs eagerly.
+jax.jit(fused)); on the CPU it runs eagerly.  The workspaces' graphs and
+the batched program's share one memory pool a processor.
 
 The fused program's stages (PipelineStages, `fn.stages`) are what the
 sharded programs of parallel/ run on each shard, so they compute what it
 computes; `ImageProcessor(mesh=...)` splits its batches over a mesh.
 
 The piecewise methods (load_bytes / debayer / process_rgb / tonemap) run
-the same stages one call at a time through the per-op workspace classes,
-with the caller carrying bounds and metrics; the viewer drives them.
+the same stages one call at a time through the per-op workspace classes
+(each a graph per input shape on the card, as JAX jits them), with the
+caller carrying bounds and metrics; the viewer drives them.  A settings
+change keeps each workspace whose arguments it leaves as they were, so its
+graphs survive the viewer's slider steps.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, to_device
-from .._graph import Graphed
+from .._graph import GraphPool, Graphed
 from ..debayer import PPG, RCD, PostProcess
 from ..denoise import Wiener
 from ..local_contrast import Bilateral
@@ -274,6 +278,10 @@ class ImageProcessor:
             None if white_balance is None
             else torch.as_tensor(white_balance, dtype=torch.float32, device=self.device)
         )
+        self._graph_pool = GraphPool()
+        # the bilinear route's graphs (JAX calls its jitted free function)
+        self._bilinear = Graphed(_demosaic.bilinear5x5_demosaic, pool=self._graph_pool)
+        self._workspace_args: dict[str, tuple] = {}
         self._rebuild_workspaces()
 
     def _rebuild_workspaces(self):
@@ -284,24 +292,33 @@ class ImageProcessor:
                                   self.packed_format, self.white_balance is not None)
         if self.mesh is None:
             # as JAX jits it: on the card one CUDA graph per input shape
-            self._fused = Graphed(fused)
+            self._fused = Graphed(fused, pool=self._graph_pool)
         else:
-            from ..parallel.mesh import sharded_pipeline
+            from ..parallel.mesh import _sharded_pipeline
 
-            self._fused = sharded_pipeline(fused, self.mesh)
-        self.bil_workspace = Bilateral(self.device, self.image_size, sigma_s=s.bil_sigma_spatial,
-                                       sigma_r=s.bil_sigma_luminance)
-        self.rcd_workspace = RCD(self.device, self.image_size, self.bayer_pattern)
-        self.ppg_workspace = PPG(self.device, self.image_size, self.bayer_pattern,
-                                 median_threshold=s.ppg_median_threshold)
-        self.postprocess_workspace = PostProcess(
-            self.device, self.image_size, self.bayer_pattern,
-            color_smoothing_passes=s.color_smoothing_passes, green_eq_local=False,
-            green_eq_global=True, green_eq_threshold=s.green_eq_threshold)
+            self._fused = _sharded_pipeline(fused, self.mesh, 'batch', self._graph_pool)
+        self._workspace('bil_workspace', Bilateral, sigma_s=s.bil_sigma_spatial,
+                        sigma_r=s.bil_sigma_luminance)
+        self._workspace('rcd_workspace', RCD, self.bayer_pattern)
+        self._workspace('ppg_workspace', PPG, self.bayer_pattern,
+                        median_threshold=s.ppg_median_threshold)
+        self._workspace('postprocess_workspace', PostProcess, self.bayer_pattern,
+                        color_smoothing_passes=s.color_smoothing_passes, green_eq_local=False,
+                        green_eq_global=True, green_eq_threshold=s.green_eq_threshold)
         f16 = torch.float16 if s.denoise_f16 else None
-        self.wiener_workspace = Wiener(self.device, self.image_size,
-                                       overlap_factor=s.denoise_overlap,
-                                       spectral_dtype=f16, storage_dtype=f16)
+        self._workspace('wiener_workspace', Wiener, overlap_factor=s.denoise_overlap,
+                        spectral_dtype=f16, storage_dtype=f16)
+
+    def _workspace(self, name: str, cls, *args, **kwargs) -> None:
+        """Set the workspace `name` to cls(device, image_size, *args,
+        **kwargs) on the processor's graph pool, unless it holds one built
+        with these arguments: that one stays, with its graphs."""
+        key = (cls, args, tuple(sorted(kwargs.items())))
+        if self._workspace_args.get(name) != key:
+            workspace = cls(self.device, self.image_size, *args, **kwargs)
+            workspace._graphs.pool = self._graph_pool
+            setattr(self, name, workspace)
+            self._workspace_args[name] = key
 
     def __repr__(self) -> str:
         wb = self.white_balance
@@ -381,7 +398,7 @@ class ImageProcessor:
             bayer_image = _wb.apply_white_balance(bayer_image, self.white_balance,
                                                   self.bayer_pattern)
         if self.settings.debayer == Debayer.bilinear:
-            rgb_raw = _demosaic.bilinear5x5_demosaic(bayer_image[..., None], self.bayer_pattern)
+            rgb_raw = self._bilinear(bayer_image[..., None], self.bayer_pattern)
         elif self.settings.debayer == Debayer.rcd:
             rgb_raw = self.rcd_workspace.process(bayer_image[..., None])
         elif self.settings.debayer == Debayer.ppg:

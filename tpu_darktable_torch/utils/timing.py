@@ -8,7 +8,9 @@ laplacian.cu:464-475) and the CUDA-event benchmark harness
   recorded output is on a card ends with torch.cuda.synchronize() of that
   card; on the CPU the wall clock alone times it.
 - benchmark_op: seconds an iteration of an op chained on its own output,
-  enqueued back to back and fenced once.
+  enqueued back to back and fenced once; on a card the chain is captured
+  once as a CUDA graph and its replays are timed (JAX times one jitted
+  lax.scan of the chain).
 - trace_to: context manager around torch.profiler.
 """
 
@@ -19,6 +21,8 @@ import os
 import time
 
 import torch
+
+from .._graph import Graphed
 
 
 def _leaves(value):
@@ -87,14 +91,18 @@ class StageTimer:
 
 def benchmark_op(fn, x0, iters: int = 10, warmup: int = 2) -> float:
     """Seconds per iteration of `fn`, chained on its own output: `iters`
-    calls are enqueued back to back and fenced once."""
+    calls are enqueued back to back and fenced once.  For a tensor on a
+    card the chain is a CUDA graph: the first call runs it eagerly and
+    captures it, each warm-up and the timed call are replays.  On the CPU
+    the first call is one more eager warm-up."""
 
-    def chained(x):
+    def run(x):
         for _ in range(iters):
             x = fn(x)
         return x
 
-    out = x0
+    chained = Graphed(run)
+    out = chained(x0)
     for _ in range(warmup):
         out = chained(x0)
     _fence(out)
