@@ -6,6 +6,8 @@ first piecewise frame):
 - a new processor's first piecewise frame (load_bytes -> debayer ->
   process_rgb -> tonemap, FULL's settings) and its second;
 - the viewer controller's first process_current and its second;
+- a new Jpeg's first encode of a 12 MP frame (4:2:2, quality 90, the
+  device entropy) and its next two;
 - each image tool's run() (chip_smoke.py's CLI_CALLS, phase 12), called
   twice: every call builds its workspace anew, so both are first calls.
 Each call is split into its captures (`_graph.Graphed._capture`, where the
@@ -159,6 +161,12 @@ def _one(tree: Path, capture: str | None) -> dict:
         c = PipelineController(settings_for_file(path), [path], device=dev)
         report['viewer'] = [timed_call(c.process_current) for _ in range(2)]
         del c
+    release()
+
+    u8 = torch.from_numpy((cs.config5_scene(W, H, seed=1500) * 255).astype('uint8')).to(dev)
+    jpeg = tt.Jpeg()
+    report['Jpeg.encode'] = [timed_call(lambda: jpeg.encode(u8, 90)) for _ in range(3)]
+    del jpeg
     release()
 
     import importlib

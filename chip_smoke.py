@@ -1378,6 +1378,83 @@ def device_busy(fn):
                 top_device_ms=[(e.key[:70], ms(e), e.count) for e in top])
 
 
+def plain_stages():
+    """The JPEG encoder's two programs run eagerly (the copy that the graphed
+    stages are held to)."""
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    stages = jp._Stages()
+    stages.dct, stages.scan = jp._jpeg_device_stage, jp._scan
+    return stages
+
+
+def jpeg_graphs(frame, frame_cpu, blocks, ri, ref):
+    """A new Jpeg's graphed DCT stage and entropy scan on one 12 MP frame:
+    its first encode (eager, then both captures) and the replays give the
+    CPU encode's bytes (`ref`, 4:2:2 q90), encode_async and the progressive
+    encode replay too, quality 75 replays the DCT capture with its own
+    bytes; no replayed encode_jpeg_async makes the host wait; capture
+    seconds and the GiB its pool keeps reserved; then each stage and the
+    whole encode timed against the eager copy in turns (eager, graphed,
+    graphed, eager)."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch.ops import jpeg as jp
+    from tpu_darktable_torch.ops import jpeg_entropy
+
+    plain = plain_stages()
+    base = reserved_gib()
+    jpg = tt.Jpeg()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = jpg.encode(frame, 90)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pool_gib = reserved_gib() - base
+    dct, scan = jpg._stages.dct, jpg._stages.scan
+    capture_s = {'dct': [c.seconds for c in dct._captured.values()],
+                 'scan': [c.seconds for c in scan._captured.values()]}
+    ref75 = jp._encode(plain, frame_cpu, 75, 3, 1, False, None, 'host', None)
+    got = {'first encode': first, 'replayed encode': jpg.encode(frame, 90),
+           'replayed encode_async': jpg.encode_async(frame, 90).result(),
+           'eager copy': jp._encode(plain, frame, 90, 3, 1, False, None, 'device', None)}
+    for label, data in got.items():
+        if not np.array_equal(data, ref):
+            raise AssertionError(f'jpeg graphs: the {label} bytes differ from the CPU encode')
+    if not np.array_equal(jpg.encode(frame, 75), ref75):
+        raise AssertionError('jpeg graphs: quality 75 replayed differs from the CPU encode')
+    prog = jpg.encode(frame, 90, progressive=True)
+    if not np.array_equal(prog, jp._encode(plain, frame_cpu, 90, 3, 1, True, None, 'auto', None)):
+        raise AssertionError('jpeg graphs: the replayed progressive encode differs from the CPU')
+    captures = [len(dct._captured), len(scan._captured)]
+    if captures != [1, 1]:
+        raise AssertionError(f'jpeg graphs: {captures} captures, not one a stage')
+    waits = sync_points(lambda: jpg.encode_async(frame, 90))
+    if waits:
+        raise AssertionError(f'a replayed encode_async makes the host wait at {waits}')
+    ms = {}
+    turns = (('eager 1', plain), ('graphed 1', jpg._stages), ('graphed 2', jpg._stages),
+             ('eager 2', plain))
+    for turn, st in turns:
+        ms[turn] = dict(
+            dct_stage_ms=cuda_ms(lambda: jp._prepare_device_stage(frame, 90, 3, 1, None,
+                                                                  st.dct), iters=10, warmup=2),
+            entropy_dispatch_ms=cuda_ms(lambda: jpeg_entropy._dispatch(st.scan, blocks, 1, ri),
+                                        iters=5, warmup=1),
+            entropy_wall_ms=wall_ms(lambda: jpeg_entropy.entropy_encode_device_finalize(
+                jpeg_entropy._dispatch(st.scan, blocks, 1, ri)), 5),
+            encode_wall_ms=wall_ms(lambda: jp._encode(st, frame, 90, 3, 1, False, None,
+                                                      'device', None), 5))
+    report = dict(first_encode_ms=first_ms, capture_s=capture_s, pool_reserved_gib=pool_gib,
+                  captures=captures, host_waits_replayed_encode_async=waits, turns=ms)
+    log(f'jpeg graphs (a new Jpeg, 12 MP 4:2:2 q90): first encode {first_ms:.1f} ms with '
+        f'captures {capture_s} s; its pool keeps {pool_gib:.2f} GiB reserved; replays of '
+        'encode, encode_async, progressive and q75 equal the CPU bytes; no host wait; in turns: '
+        + '; '.join(f'{k} ' + ', '.join(f'{n} {v:.2f}' for n, v in d.items())
+                    for k, d in ms.items()))
+    del jpg
+    return report
+
+
 def phase_jpeg(dev, smi):
     """The JPEG encoder on one FULL frame, card against CPU and timed, then
     BASELINE config 5 through the streaming executor in both JPEG modes."""
@@ -1429,11 +1506,11 @@ def phase_jpeg(dev, smi):
     host_blocks = [b.cpu().numpy() for b in blocks]
     tables = tuple((jp._HUFF[('dc', t)][0], jp._HUFF[('dc', t)][1], jp._HUFF[('ac', t)][0],
                     jp._HUFF[('ac', t)][1]) for t in (0, 1))
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    jp.encode_jpeg(frame, 90, entropy='device')
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # the working set of one device-entropy encode run eagerly, and of a replay
+    peak = peak_gib(lambda: jp._encode(plain_stages(), frame, 90, 3, 1, False, None, 'device',
+                                       None))
+    report['peak_gib_replayed_encode'] = peak_gib(lambda: jp.encode_jpeg(frame, 90,
+                                                                         entropy='device'))
     report.update(
         dct_stage_ms=cuda_ms(lambda: jp._prepare_device_stage(frame, 90, 3, 1), iters=10, warmup=2),
         device_entropy_ms=wall_ms(
@@ -1454,6 +1531,7 @@ def phase_jpeg(dev, smi):
         if report[name]:
             raise AssertionError(f'{name}: the host waits for the card at {report[name]}, so '
                                  'batch N+1 cannot be enqueued while batch N runs')
+    report['graphed_stages'] = jpeg_graphs(frame, frame_cpu, blocks, ri, ref)
 
     # (c) BASELINE config 5: FULL at 4096x3000, batch 2, quality 90, streamed
     n_frames, warm = 32, 2
@@ -1461,6 +1539,7 @@ def phase_jpeg(dev, smi):
     runs, executors = {}, {}
     for device_jpeg in (True, False):
         proc.bounds = proc.metrics = None   # each run starts from the same EMA state
+        base = reserved_gib()
         ex = StreamingExecutor(proc, batch_size=2, jpeg_quality=90, jpeg_workers=2,
                                keep_images=False, device_jpeg=device_jpeg)
         kernels.reset_launches()
@@ -1481,11 +1560,24 @@ def phase_jpeg(dev, smi):
         mode = 'device_jpeg' if device_jpeg else 'host_jpeg_2_workers'
         executors[mode] = ex
         runs[mode] = {r.name: r.jpeg for r in results}
+        # the encoder's graphs: captured once (the first frame), replayed after
+        stages = ex._jpeg._stages
+        captures = [len(stages.dct._captured), len(stages.scan._captured)]
+        if captures != [1, 1 if device_jpeg else 0]:
+            raise AssertionError(f'config 5 ({mode}): the JPEG stages hold {captures} captures, '
+                                 'not one a stage that ran')
         report[mode] = dict(s_per_frame=seconds, frames_per_s=1.0 / seconds,
-                            mb_per_frame=float(np.mean([len(r.jpeg) for r in results])) / 1e6)
+                            mb_per_frame=float(np.mean([len(r.jpeg) for r in results])) / 1e6,
+                            jpeg_captures=captures,
+                            jpeg_capture_s=[c.seconds for g in (stages.dct, stages.scan)
+                                            for c in g._captured.values()],
+                            reserved_gib_over_the_processor=reserved_gib() - base)
         log(f'config 5 ({mode}): {n_frames} frames, {seconds:.4f} s/frame, '
             f'{1 / seconds:.2f} frames/s, {report[mode]["mb_per_frame"]:.3f} MB/frame; '
-            f'launches {launches}')
+            f'launches {launches}; JPEG captures (DCT, scan) {captures} in '
+            f'{report[mode]["jpeg_capture_s"]} s; the encoder\'s graphs add '
+            f'{report[mode]["reserved_gib_over_the_processor"]:.2f} GiB to the reserved memory '
+            '(one pool with the processor\'s)')
     if runs['device_jpeg'] != runs['host_jpeg_2_workers']:
         raise AssertionError('config 5: the device-JPEG and host-JPEG runs differ in their bytes')
     report['full_process_batch_ms_per_frame'] = full_ms
@@ -1494,8 +1586,13 @@ def phase_jpeg(dev, smi):
 
     # (d) the card's busy time under torch.profiler, last: where a profiler
     # session ran before them, FULL and config 5 timed 40-65% slower
+    plain = plain_stages()
     profiled = {'dct_stage': lambda: jp._prepare_device_stage(frame, 90, 3, 1),
+                'dct_stage_eager': lambda: jp._prepare_device_stage(frame, 90, 3, 1, None,
+                                                                    plain.dct),
                 'device_entropy': lambda: jpeg_entropy.entropy_encode_device(blocks, 1, ri),
+                'device_entropy_eager': lambda: jpeg_entropy.entropy_encode_device_finalize(
+                    jpeg_entropy._dispatch(plain.scan, blocks, 1, ri)),
                 'full_process_batch_2': lambda: proc.process_batch(batch)}
     for mode, ex in executors.items():
         profiled[f'config5_{mode}_2_frames'] = \
@@ -1790,6 +1887,77 @@ def sharded_case(label, fn, ref_fn, frames, blocks, report):
                              f'{FULL_KERNELS}')
 
 
+# the band programs' per-device steps between the collectives that ran
+# eagerly before they were graphs of their own (parallel/spatial_pipeline.py)
+BAND_GLUE = ('green_eq', 'lab', 'laplacian', 'lab_modify')
+
+
+def band_breakdown(program, call, n=3):
+    """ms of the card's timeline a frame (by CUDA events, over n calls after
+    one) spent from the start to the end of each call of the band
+    program's steps, summed a step, and in what lies between them (the
+    gathers, sums and replicas across devices, the EMA, and the card's idle
+    time while the host enqueues)."""
+    graphs = dict(program.graphs)
+    events = {}
+
+    def timed(name, step):
+        def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*args)
+            end.record()
+            events.setdefault(name, []).append((start, end))
+            return out
+        return run
+
+    program.graphs.update({name: timed(name, g) for name, g in graphs.items()})
+    try:
+        call()
+        events.clear()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        program.graphs.update(graphs)
+    total = start.elapsed_time(end) / n
+    steps = {name: sum(a.elapsed_time(b) for a, b in ev) / n for name, ev in events.items()}
+    steps['between the steps'] = total - sum(steps.values())
+    return dict(total_ms=total, steps_ms=steps)
+
+
+def band_glue_case(label, build, call, frames, report):
+    """A band program (its glue graphed) against a copy whose glue runs
+    eagerly between its graphed stage groups: bit for bit, then ms a frame
+    in turns (eager glue, graphed, graphed, eager glue) by CUDA events, the
+    breakdown of a frame of each, and the card's busy time and idle share."""
+    graphed, eager = build(), build()
+    for name in BAND_GLUE:
+        eager.graphs[name] = eager.graphs[name].fn
+    first = call(graphed)           # eager, then the captures
+    if not all(torch.equal(a, b) for a, b in zip(call(graphed), call(eager))) or \
+            not all(torch.equal(a, b) for a, b in zip(first, call(eager))):
+        raise AssertionError(f'{label}: the graphed glue differs from the eager glue')
+    ms = {}
+    for turn, prog in (('eager glue 1', eager), ('graphed 1', graphed), ('graphed 2', graphed),
+                       ('eager glue 2', eager)):
+        ms[turn] = cuda_ms(lambda: call(prog), iters=3, warmup=1) / frames
+    out = dict(ms_per_frame=ms,
+               breakdown={'graphed': band_breakdown(graphed, lambda: call(graphed)),
+                          'eager glue': band_breakdown(eager, lambda: call(eager))},
+               profile={'graphed': device_busy(lambda: call(graphed)),
+                        'eager glue': device_busy(lambda: call(eager))},
+               captures={n: len(g._captured) for n, g in graphed.graphs.items()})
+    report[f'{label}: glue'] = out
+    log(f'{label}: the graphed glue equals the eager glue bit for bit; ms/frame in turns '
+        + ', '.join(f'{k} {v:.2f}' for k, v in ms.items())
+        + f'; breakdown {out["breakdown"]}; profile {out["profile"]}; captures {out["captures"]}')
+
+
 def phase_sharded(dev):
     """parallel/ on the card, over meshes of the one card repeated: the
     12-camera rig batch-sharded 4 ways through ImageProcessor(mesh=...), one
@@ -1858,16 +2026,25 @@ def phase_sharded(dev):
     bands = parallel.make_mesh([dev] * 3)
     spatial = parallel.build_spatial_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format,
                                                  True, bands, halo=64)
-    sharded_case(f'FULL {W}x{H} on {bands.size} row bands (band {H // 3}, halo 64)',
-                 lambda: spatial(batch[0], *state0),
+    label = f'FULL {W}x{H} on {bands.size} row bands (band {H // 3}, halo 64)'
+    sharded_case(label, lambda: spatial(batch[0], *state0),
                  lambda: (lambda o, b, m: (o[0], b, m))(*ref_fn(batch[:1], *state0)), 1, 3,
                  report)
+    del spatial
+    band_glue_case(label, lambda: parallel.build_spatial_pipeline_fn(
+        s, (W, H), art.bayer_pattern, art.packed_format, True, bands, halo=64),
+        lambda p: p(batch[0], *state0), 1, report)
 
     grid_mesh = parallel.make_grid_mesh(2, 3, [dev] * 6)
     grid = parallel.build_grid_pipeline_fn(s, (W, H), art.bayer_pattern, art.packed_format, True,
                                            grid_mesh, halo=64)
-    sharded_case(f'FULL {W}x{H} batch 2 on a (camera 2, band 3) grid',
-                 lambda: grid(batch, *state0), lambda: ref_fn(batch, *state0), 2, 3, report)
+    label = f'FULL {W}x{H} batch 2 on a (camera 2, band 3) grid'
+    sharded_case(label, lambda: grid(batch, *state0), lambda: ref_fn(batch, *state0), 2, 3,
+                 report)
+    del grid
+    band_glue_case(label, lambda: parallel.build_grid_pipeline_fn(
+        s, (W, H), art.bayer_pattern, art.packed_format, True, grid_mesh, halo=64),
+        lambda p: p(batch, *state0), 2, report)
 
     n_cards = torch.cuda.device_count()
     if n_cards > 1:

@@ -776,3 +776,170 @@ def test_sharded_graphs_over_distinct_cards(dev):
         out = bands(frames[0], *state)[0]
         assert out.device == cards[0]
         assert (out.int() - want.int()).abs().max().item() <= 1
+
+
+# ---- the JPEG stages and the band programs' glue as CUDA graphs
+
+def _plain_jpeg_stages():
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    stages = jp._Stages()
+    stages.dct, stages.scan = jp._jpeg_device_stage, jp._scan
+    return stages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('restart_interval', [0, 5, None], ids=['off', '5', 'auto'])
+@pytest.mark.parametrize('subsampling', [0, 1, 2], ids=['444', '422', 'gray'])
+def test_graphed_jpeg_equals_eager_and_host_scan(dev, subsampling, restart_interval):
+    """A Jpeg's DCT stage and entropy scan captured on its first encode and
+    replayed after: over two frames and qualities 90 and 75 (one capture a
+    stage), the bytes equal the eager encode on the card and the host scan
+    of the CPU's coefficients, bit for bit; a replayed encode_async makes
+    the host wait nowhere."""
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    plain = _plain_jpeg_stages()
+    jpeg = tt.Jpeg()
+    frames = [_jpeg_image(seed, 480, 640) for seed in (31, 32)]
+    for quality in (90, 75):
+        for img in frames:
+            args = (quality, 3, subsampling)
+            got = jpeg.encode(img.to(dev), quality, subsampling=subsampling,
+                              restart_interval=restart_interval)
+            eager = jp._encode(plain, img.to(dev), *args, False, restart_interval, 'device', None)
+            host = jp._encode(plain, img, *args, False, restart_interval, 'host', None)
+            assert np.array_equal(got, eager) and np.array_equal(got, host), (quality,)
+    assert len(jpeg._stages.dct._captured) == 1 and len(jpeg._stages.scan._captured) == 1
+    on_card = frames[0].to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        pending = jpeg.encode_async(on_card, 90, subsampling=subsampling,
+                                    restart_interval=restart_interval)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    want = jp._encode(plain, frames[0], 90, 3, subsampling, False, restart_interval, 'host',
+                      None)
+    assert np.array_equal(pending.result(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('entropy', ['device', 'host'])
+def test_two_threads_through_one_jpeg_on_card(dev, entropy):
+    """Two host threads encode different frames through one Jpeg at once,
+    five times each (its graphs captured before): every encode gives its
+    own frame's eager bytes."""
+    import threading
+
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    plain = _plain_jpeg_stages()
+    frames = [_jpeg_image(seed, 480, 640).to(dev) for seed in (33, 34)]
+    want = [jp._encode(plain, f, 90, 3, 1, False, None, entropy, None) for f in frames]
+    jpeg = tt.Jpeg()
+    jpeg.encode(frames[0], 90, entropy=entropy)
+    start = threading.Barrier(2)
+    got = {0: [], 1: []}
+
+    def encode(k):
+        start.wait()
+        for _ in range(5):
+            got[k].append(jpeg.encode(frames[k], 90, entropy=entropy))
+
+    threads = [threading.Thread(target=encode, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert len(jpeg._stages.dct._captured) == 1
+    for k in (0, 1):
+        assert len(got[k]) == 5 and all(np.array_equal(d, want[k]) for d in got[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('device_jpeg', [True, False], ids=['device JPEG', 'host JPEG'])
+def test_streaming_replays_the_jpeg_stages_on_card(dev, device_jpeg):
+    """The streaming executor at 256x192, batch 2, 6 frames: the encoder's
+    graphs captured once on the processor's pool (host mode: by a worker
+    thread), and every frame's bytes equal an eager encoder's of the
+    same frame."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch.ops import jpeg as jp
+    from tpu_darktable_torch.pipeline.streaming import StreamingExecutor
+
+    w, h = 256, 192
+    proc = tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                             case_settings('full'), device=dev, white_balance=(1.2, 1.0, 1.1))
+    frames = [(f'f{i}', f) for i, f in enumerate(case_frames(w, h, 6, seed=26))]
+    ex = StreamingExecutor(proc, batch_size=2, jpeg_quality=90, keep_images=True,
+                           device_jpeg=device_jpeg)
+    results = ex.run(frames)
+    stages = ex._jpeg._stages
+    assert stages.dct.pool is proc._graph_pool
+    assert [len(stages.dct._captured), len(stages.scan._captured)] == \
+        [1, 1 if device_jpeg else 0]
+    plain = _plain_jpeg_stages()
+    for r in results:
+        assert r.error is None
+        want = jp._encode(plain, torch.from_numpy(r.image), 90, 3, 1, False, None, 'host', None)
+        assert r.jpeg == np.asarray(want).tobytes(), r.name
+
+
+_BAND_GLUE_CASES = {
+    'bands 3 full': ({}, None),
+    'bands 3 full laplacian': (dict(enable_laplacian=True, lap_clarity=0.3), None),
+    'grid 2x3 full': ({}, (2, 3)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(_BAND_GLUE_CASES))
+def test_band_glue_graphed_equals_eager_on_card(dev, case):
+    """The band programs at 256x192 (3 bands of 64 rows, blocks of 192) with
+    their per-device glue graphed, against a copy whose glue (green eq,
+    the Laplacian's LAB steps and full-frame Laplacian) runs eagerly
+    between its graphed stage groups: bit for bit over two calls; one
+    capture a step for all blocks; no host wait on the replays."""
+    import dataclasses
+
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch import parallel
+
+    kw, grid = _BAND_GLUE_CASES[case]
+    w, h = 256, 192
+    s = dataclasses.replace(case_settings('full'), **kw)
+    args = (s, (w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12, True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = (torch.tensor([1.2, 1.0, 1.1], **f32), torch.zeros(2, **f32), torch.zeros(5, **f32),
+             torch.ones((), **f32))
+    frames = case_frames(w, h, 2, seed=27).to(dev)
+    if grid is None:
+        build = lambda: parallel.build_spatial_pipeline_fn(*args, parallel.make_mesh([dev] * 3),
+                                                           halo=64)
+        data = frames[0]
+    else:
+        build = lambda: parallel.build_grid_pipeline_fn(
+            *args, parallel.make_grid_mesh(*grid, [dev] * 6), halo=64)
+        data = frames
+    graphed, eager = build(), build()
+    for name in ('green_eq', 'lab', 'laplacian', 'lab_modify'):
+        eager.graphs[name] = eager.graphs[name].fn
+    for _ in range(2):
+        for a, b in zip(graphed(data, *state), eager(data, *state)):
+            assert torch.equal(a, b)
+    used = {'front', 'green_eq', 'back', 'tonemap'}
+    used |= {'lab', 'laplacian', 'lab_modify'} if s.enable_laplacian else set()
+    assert {n for n, g in graphed.graphs.items() if g._captured} == used
+    assert all(len(graphed.graphs[n]._captured) == 1 for n in used)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        graphed(data, *state)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')

@@ -180,6 +180,47 @@ def test_capture_adds_no_launch_and_each_replay_adds_its_capture(stand_in):
     assert kernels.launches['rcd_interior'] == 4
 
 
+def test_a_capture_in_one_thread_keeps_the_counts_of_another():
+    """While one thread captures (its launches go to the capture's dict),
+    another thread's launches count as usual, and what the capture records
+    is its own thread's alone; likewise the device constants a capture
+    holds.  Stressed with a short switch interval."""
+    import threading
+
+    made, held, errors = [], [], []
+    stop = threading.Event()
+
+    def capture():
+        try:
+            while not stop.is_set():
+                with kernels.uncounted() as m, _device.holding() as h:
+                    kernels.launches['wavelet_core'] += 1
+                    kernels.launches['wavelet_core'] += 1
+                    _device.scalar_on(2.0, 'cpu')
+                made.append(m)
+                held.append(len(h))
+        except Exception as e:   # reported below
+            errors.append(e)
+
+    kernels.reset_launches()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    t = threading.Thread(target=capture)
+    try:
+        t.start()
+        for _ in range(20000):
+            kernels.launches['rcd_interior'] += 1
+            _device.scalar_on(3.0, 'cpu')
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        sys.setswitchinterval(switch)
+    assert not t.is_alive() and errors == [] and made
+    assert kernels.launches['rcd_interior'] == 20000 and kernels.launches['wavelet_core'] == 0
+    assert all(m == {'wavelet_core': 2} for m in made) and set(held) == {1}
+    kernels.reset_launches()
+
+
 def test_capture_holds_the_device_constants_it_read(stand_in):
     """While a capture runs, the device caches report what they hand out;
     the captured entry keeps it after the caches are cleared."""

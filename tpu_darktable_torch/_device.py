@@ -8,21 +8,23 @@ A constant that an op needs on the device every call (a gain tile, a white
 point, a divisor) is made once for each value and device and kept in a
 bounded cache (`device_cache`).  A CUDA graph (_graph.py) holds the raw
 pointers of the constants its program read while it was captured, so
-while a capture runs every cache reports the values it hands out
-(`holding`), and the graph keeps them alive after the cache has dropped
-them.
+while a capture runs every cache reports the values it hands out to the
+capturing thread (`holding`), and the graph keeps them alive after the
+cache has dropped them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
 
-# the values handed out by the device caches while a capture runs, or None
-_held: list | None = None
+# .held: the values the device caches hand out to this thread while it
+# captures, or None
+_local = threading.local()
 _caches: list = []
 
 
@@ -59,8 +61,9 @@ def device_cache(maxsize: int):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             value = cached(*args, **kwargs)
-            if _held is not None:
-                _held.append(value)
+            held = getattr(_local, 'held', None)
+            if held is not None:
+                held.append(value)
             return value
 
         wrapper.cache_clear = cached.cache_clear
@@ -72,14 +75,14 @@ def device_cache(maxsize: int):
 
 @contextlib.contextmanager
 def holding():
-    """Collect the values that the device caches hand out inside the block
-    into the list it yields."""
-    global _held
-    outer, _held = _held, []
+    """Collect the values that the device caches hand out to this thread
+    inside the block into the list it yields."""
+    outer = getattr(_local, 'held', None)
+    _local.held = held = []
     try:
-        yield _held
+        yield held
     finally:
-        _held = outer
+        _local.held = outer
 
 
 def clear_caches() -> None:

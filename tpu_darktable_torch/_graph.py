@@ -1,6 +1,23 @@
 """The compiled programs of the port (counterpart of tpu_darktable/_jit.py
-and of every `jax.jit` of the JAX package: the batched program, the
-workspace classes, the timing chains and the sharded programs' stages).
+and of every `jax.jit` of the JAX package), each a `Graphed` owned as
+follows:
+- `jax.jit(fused)` (pipeline/image_processor.py:337): ImageProcessor's
+  batched program;
+- `jit_with_static` (debayer.py:31,39,60,93,124, denoise.py:51,
+  local_contrast.py:28,77): the workspace classes' methods and the free
+  bilinear5x5_demosaic;
+- the timing chains (utils/timing.py:89, scripts/run_benchmark.py:45):
+  utils.timing.benchmark_op's chain;
+- parallel/mesh.py:56, spatial.py:65,78: the per-shard stages of
+  sharded_pipeline, the spatial demosaic's band, and every per-device
+  step of the band programs (parallel/spatial_pipeline.py, whose body JAX
+  compiles as one shard_map program);
+- ops/jpeg.py:195 `_jpeg_device_stage` and ops/jpeg_entropy.py:356
+  `_entropy_pack_device`: the JPEG encoder's two programs (ops/jpeg.py
+  `_Stages`, one pair a Jpeg and one for the free functions).
+(run_benchmark.py:36's fence, a jitted sum read on the host, is
+torch.cuda.synchronize in utils/timing.py, and utils/aot.py's compile
+cache is kernels/_build.py's.)
 
 XLA compiles a function into one executable, cached on its inputs' shapes
 and its static arguments, and runs it as one dispatch.  Here `Graphed(fn)`
@@ -40,11 +57,24 @@ outside the pool.  Memory a dropped graph used goes back to the pool, for
 the pool's later captures.  A pool with no graph left keeps its memory
 reserved until torch.cuda.empty_cache(), or until an allocation outside a
 capture finds the card full.
+
+Threads: the streaming executor's JPEG workers call one encoder's graphs
+at once, and those graphs share the processor's pool, whose graphs the
+main thread replays meanwhile.  A graph's static outputs may lie in the
+memory that another graph of its pool uses for its intermediates, so a
+replay and the clone of its outputs must not have another graph of the
+pool run between them, and two callers of one graph must not share its
+static buffers.  So each wrapper takes its pool's lock around the lookup,
+the first call and its capture, and a replay's copy-in, replay and clone;
+and one capture runs at a time in the process (`_capture_lock`), on its
+device's side stream.  The callers enqueue on the legacy default stream,
+so the card runs their replays in the order the locks let them through.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -73,6 +103,8 @@ def _new_graph():
 # a side stream a device to capture on (torch.cuda.graph's default is one
 # stream, on the device that was current at its first use)
 _capture_streams: dict[int, object] = {}
+# held by the capture under way: two threads never capture on one stream
+_capture_lock = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -127,6 +159,8 @@ class GraphPool:
 
     def __init__(self):
         self._ids: dict[int, tuple[object, weakref.WeakSet]] = {}
+        # held by a caller of one of the pool's graphs (see the module docstring)
+        self.lock = threading.RLock()
 
     def handle(self, index: int, graph):
         """The pool id for capturing `graph` on CUDA device `index`."""
@@ -176,14 +210,15 @@ class Graphed:
         if not any(_on_card(a) for a in args):
             return self.fn(*args)
         key = capture_key(args)
-        entry = self._captured.get(key)
-        if entry is not None:
-            self._captured.move_to_end(key)
-            return entry.replay(args)
-        out = self.fn(*args)
-        while len(self._captured) >= _MAXSIZE:
-            self._captured.popitem(last=False)
-        self._captured[key] = self._capture(args, key)
+        with self.pool.lock:
+            entry = self._captured.get(key)
+            if entry is not None:
+                self._captured.move_to_end(key)
+                return entry.replay(args)
+            out = self.fn(*args)
+            while len(self._captured) >= _MAXSIZE:
+                self._captured.popitem(last=False)
+            self._captured[key] = self._capture(args, key)
         return out
 
     def _capture(self, args, key) -> _Captured:
@@ -192,7 +227,7 @@ class Graphed:
         index = _device_index(args)
         t0 = time.perf_counter()
         try:
-            with kernels.uncounted() as made, _device.holding() as held, \
+            with _capture_lock, kernels.uncounted() as made, _device.holding() as held, \
                     torch.cuda.device(index):
                 outputs = _record(graph, self.pool.handle(index, graph), self.fn, inputs)
         except Exception as e:

@@ -4,14 +4,17 @@ reference's torch_darktable/jpeg.py.
 The encoder itself (the DCT stage on the image's device and the entropy
 scan on the device or the host) lives in ops/jpeg.py; this module provides
 the reference-compatible class and enums (reference jpeg.py:10-33,
-csrc/jpeg_encoder.{h,cu}).
+csrc/jpeg_encoder.{h,cu}).  A Jpeg owns the CUDA graphs of its two device
+programs, as the workspace classes own theirs: on the card the first
+encode of an image shape captures them, later ones replay them.
 """
 
 from __future__ import annotations
 
 from enum import IntEnum
 
-from .ops.jpeg import JpegException, PendingJpeg, encode_jpeg, encode_jpeg_async
+from .ops.jpeg import JpegException, PendingJpeg, _encode, _encode_async, _Stages
+from .ops.jpeg import encode_jpeg, encode_jpeg_async  # noqa: F401  (names of JAX's module)
 
 
 class InputFormat(IntEnum):
@@ -36,6 +39,9 @@ class Jpeg:
     device; an array goes to `device` (None = the card).
     """
 
+    def __init__(self):
+        self._stages = _Stages()
+
     def encode(
         self,
         image,
@@ -47,16 +53,8 @@ class Jpeg:
         entropy: str = 'auto',
         device=None,
     ):
-        return encode_jpeg(
-            image,
-            quality=quality,
-            input_format=int(input_format),
-            subsampling=int(subsampling),
-            progressive=progressive,
-            restart_interval=restart_interval,
-            entropy=entropy,
-            device=device,
-        )
+        return _encode(self._stages, image, quality, int(input_format), int(subsampling),
+                       progressive, restart_interval, entropy, device)
 
     def encode_async(
         self,
@@ -71,14 +69,8 @@ class Jpeg:
 
         Same bitstream as encode(entropy='device'); the split lets streaming
         callers overlap this frame's readback with later device work."""
-        return encode_jpeg_async(
-            image,
-            quality=quality,
-            input_format=int(input_format),
-            subsampling=int(subsampling),
-            restart_interval=restart_interval,
-            device=device,
-        )
+        return _encode_async(self._stages, image, quality, int(input_format),
+                             int(subsampling), restart_interval, device)
 
 
 __all__ = ['InputFormat', 'Jpeg', 'JpegException', 'PendingJpeg', 'Subsampling']

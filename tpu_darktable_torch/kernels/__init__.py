@@ -7,16 +7,40 @@ launches the kernel, and nowhere else.  The CUDA sources live in
 `tpu_darktable_torch/csrc/` and are built at first use (kernels/_build.py).
 
 The counts mean launches that ran.  A CUDA graph's capture (_graph.py)
-enqueues nothing that runs, so what its wrapper calls count is taken back
-(`uncounted`), and each replay adds what its capture recorded
-(`add_launches`).
+enqueues nothing that runs, so what its wrapper calls count inside the
+capture goes to the capture's own dict (`uncounted`), and each replay adds
+what its capture recorded (`add_launches`).  The redirection is the
+capturing thread's alone: a capture in one thread (the streaming
+executor's JPEG workers) leaves the counts of launches that other threads
+run meanwhile where they belong.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
-launches: dict[str, int] = {
+# the dict the calling thread counts into while it captures, if it does
+_local = threading.local()
+
+
+class _Launches(dict):
+    """Launch counts by kernel name; inside `uncounted` the calling
+    thread reads and writes its capture's dict instead."""
+
+    def __getitem__(self, name):
+        made = getattr(_local, 'made', None)
+        return super().__getitem__(name) if made is None else made.get(name, 0)
+
+    def __setitem__(self, name, n):
+        made = getattr(_local, 'made', None)
+        if made is None:
+            super().__setitem__(name, n)
+        else:
+            made[name] = n
+
+
+launches: dict[str, int] = _Launches({
     'rcd_interior': 0,
     'color_smooth_diffs': 0,
     'bilateral_band': 0,
@@ -25,7 +49,7 @@ launches: dict[str, int] = {
     'nlm_core': 0,
     'wiener_tile_core': 0,
     'bilateral_fused': 0,
-}
+})
 
 
 def reset_launches() -> None:
@@ -35,15 +59,15 @@ def reset_launches() -> None:
 
 @contextlib.contextmanager
 def uncounted():
-    """Take back the launches counted inside the block; the dict it yields
-    holds them, by name, once the block ends."""
-    before = dict(launches)
+    """What the calling thread counts inside the block goes to the dict
+    it yields, by name, and not to `launches`."""
+    outer = getattr(_local, 'made', None)
     made: dict[str, int] = {}
+    _local.made = made
     try:
         yield made
     finally:
-        made.update({k: n - before[k] for k, n in launches.items() if n != before[k]})
-        launches.update(before)
+        _local.made = outer
 
 
 def add_launches(counts: dict[str, int]) -> None:

@@ -10,6 +10,19 @@ entropy scan on the device or on the host.
 - `progressive=True` encodes spectral-selection scans with optimised
   Huffman tables on the host (ops/jpeg_progressive.py).
 
+Where the JAX package jits the DCT stage and the device entropy scan, the
+port runs them through `_graph.Graphed` (`_Stages`): on a card the first
+call of each key runs eagerly and captures a CUDA graph, later calls
+replay it.  The DCT stage is keyed on the image's shape and device,
+`subsampling` and `swap_br`; the quant tables are tensor arguments, so
+every quality replays one capture with its own tables.  The scan is keyed
+on the block shapes, `subsampling`, the restart interval and the capacity.
+A `tpu_darktable_torch.jpeg.Jpeg` owns its pair; the free functions here
+share one.  The constants both read (the DCT matrix, the zigzag order, the
+Huffman tables) are device constants made once per device
+(`_device.constant_on`), never host copies, which a replay could not
+repeat.
+
 The bytes are the JAX package's for the same coefficients.  The device
 stage reproduces the arithmetic of the JAX stage as XLA compiles it for
 the CPU: products and sums in a fixed order, a fused multiply-add where
@@ -26,8 +39,10 @@ import os
 import numpy as np
 import torch
 
-from .._device import resolve_device, to_device
+from .._device import constant_on, resolve_device
+from .._graph import GraphPool, Graphed
 from ..native import jpeg_encode_baseline_native, pack_bits
+from .jpeg_entropy import _dispatch, _scan, entropy_encode_device_finalize
 
 
 class JpegException(Exception):
@@ -170,6 +185,12 @@ def _dct_matrix() -> np.ndarray:
     return m.astype(np.float32)
 
 
+# the DCT matrix's float32 values as float64, and the zigzag order, which
+# the device stage takes from the device caches
+_DCT64 = _dct_matrix().astype(np.float64)
+_ZIGZAG64 = _ZIGZAG.astype(np.int64)
+
+
 # ---------------------------------------------------------------------------
 # The device stage
 # ---------------------------------------------------------------------------
@@ -203,7 +224,7 @@ def _plane_to_quantized_blocks(plane: torch.Tensor, qtable: torch.Tensor) -> tor
     h, w = plane.shape
     dev = plane.device
     blocks = plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3).reshape(-1, 8, 8)
-    d64 = to_device(_dct_matrix().astype(np.float64), dev)
+    d64 = constant_on(_DCT64, dev)
     # f[n, u, v] = sum_x sum_y d[u, x] b[n, x, y] d[v, y]: x first, as XLA
     # orders the einsum's two dots
     t = _dct_rows(blocks.transpose(1, 2), d64)      # (n, y, u)
@@ -212,7 +233,7 @@ def _plane_to_quantized_blocks(plane: torch.Tensor, qtable: torch.Tensor) -> tor
     # reciprocal.  torch.round rounds half to even, as jnp.round does.
     # int16 halves the readback; |DCT| <= 8 * 128 and q >= 1, so it fits.
     q = torch.round(f / qtable).to(torch.int16)
-    zz = to_device(_ZIGZAG.astype(np.int64), dev)
+    zz = constant_on(_ZIGZAG64, dev)
     return q.reshape(-1, 64).index_select(1, zz)
 
 
@@ -263,6 +284,21 @@ def _jpeg_device_stage(image_u8: torch.Tensor, qy: torch.Tensor, qc: torch.Tenso
         _plane_to_quantized_blocks(_pad_to(cb, 8, 8), qc),
         _plane_to_quantized_blocks(_pad_to(cr, 8, 8), qc),
     )
+
+
+class _Stages:
+    """The encoder's two compiled programs, the counterparts of JAX's jitted
+    `_jpeg_device_stage` and `_entropy_pack_device`, on one GraphPool
+    (`pool`, a new one if None).  Their captures go when the owner drops
+    them."""
+
+    def __init__(self, pool: GraphPool | None = None):
+        self.dct = Graphed(_jpeg_device_stage, pool)
+        self.scan = Graphed(_scan, self.dct.pool)
+
+
+# the free functions' programs (a Jpeg owns its own)
+_FREE = _Stages()
 
 
 def _bit_size(v: np.ndarray) -> np.ndarray:
@@ -557,8 +593,15 @@ def encode_jpeg(
     Returns:
         numpy uint8 bitstream.
     """
+    return _encode(_FREE, image, quality, input_format, subsampling, progressive,
+                   restart_interval, entropy, device)
+
+
+def _encode(stages: _Stages, image, quality, input_format, subsampling, progressive,
+            restart_interval, entropy, device):
+    """encode_jpeg through the programs of `stages`."""
     (h, w, qy, qc, comp_blocks_dev, n_comp) = _prepare_device_stage(
-        image, quality, input_format, subsampling, device)
+        image, quality, input_format, subsampling, device, stages.dct)
 
     if entropy not in ('auto', 'device', 'host'):
         raise JpegException("entropy must be 'auto', 'device' or 'host'")
@@ -576,9 +619,8 @@ def encode_jpeg(
         restart_interval, w, subsampling, n_comp, comp_blocks_dev)
 
     if _use_device_entropy(entropy, comp_blocks_dev[0]):
-        from .jpeg_entropy import entropy_encode_device
-
-        body = entropy_encode_device(comp_blocks_dev, subsampling, restart_interval)
+        body = entropy_encode_device_finalize(
+            _dispatch(stages.scan, comp_blocks_dev, subsampling, restart_interval))
         if body is not None:  # None = capacity overflow -> host fallback
             return _assemble(body, h, w, qy, qc, subsampling, n_comp, restart_interval)
 
@@ -586,9 +628,12 @@ def encode_jpeg(
         comp_blocks_dev, h, w, qy, qc, subsampling, n_comp, restart_interval)
 
 
-def _prepare_device_stage(image, quality, input_format, subsampling, device=None):
+def _prepare_device_stage(image, quality, input_format, subsampling, device=None,
+                          stage=None):
     """Shared encode prologue: validate the layout, build the quant tables
-    and enqueue the DCT/quant/zigzag stage on the image's device.
+    and enqueue the DCT/quant/zigzag stage on the image's device, through
+    `stage` (the free functions' graphed stage if None; the plain
+    `_jpeg_device_stage` runs it eagerly).
 
     A tensor input stays on its device: with entropy='device' only the
     compressed stream crosses to the host (the reference's nvJPEG contract,
@@ -612,9 +657,9 @@ def _prepare_device_stage(image, quality, input_format, subsampling, device=None
     h, w = arr.shape[:2]
     qy, qc = quality_to_tables(quality)
     dev = arr.device
-    comp_blocks_dev = _jpeg_device_stage(
-        arr, to_device(qy.astype(np.float32), dev), to_device(qc.astype(np.float32), dev),
-        subsampling=subsampling, swap_br=swap_br)
+    stage = _FREE.dct if stage is None else stage
+    comp_blocks_dev = stage(arr, constant_on(qy.astype(np.float32), dev),
+                            constant_on(qc.astype(np.float32), dev), subsampling, swap_br)
     return h, w, qy, qc, comp_blocks_dev, len(comp_blocks_dev)
 
 
@@ -662,8 +707,6 @@ class PendingJpeg:
 
     def result(self) -> np.ndarray:
         """Wait for the device work and return the full JFIF bitstream."""
-        from .jpeg_entropy import entropy_encode_device_finalize
-
         h, w, qy, qc, subsampling, n_comp, restart_interval = self._meta
         body = entropy_encode_device_finalize(self._pending)
         if body is not None:
@@ -690,14 +733,18 @@ def encode_jpeg_async(
     host fallback on capacity overflow), but returns a :class:`PendingJpeg`
     immediately; call ``.result()`` to obtain the bitstream.  Baseline only.
     """
-    from .jpeg_entropy import entropy_encode_device_dispatch
+    return _encode_async(_FREE, image, quality, input_format, subsampling, restart_interval,
+                         device)
 
+
+def _encode_async(stages: _Stages, image, quality, input_format, subsampling,
+                  restart_interval, device) -> PendingJpeg:
+    """encode_jpeg_async through the programs of `stages`."""
     (h, w, qy, qc, comp_blocks_dev, n_comp) = _prepare_device_stage(
-        image, quality, input_format, subsampling, device)
+        image, quality, input_format, subsampling, device, stages.dct)
     restart_interval = _resolve_restart_interval(
         restart_interval, w, subsampling, n_comp, comp_blocks_dev)
-    pending = entropy_encode_device_dispatch(
-        comp_blocks_dev, subsampling, restart_interval)
+    pending = _dispatch(stages.scan, comp_blocks_dev, subsampling, restart_interval)
     return PendingJpeg(pending, comp_blocks_dev, h, w, qy, qc, subsampling,
                        n_comp, restart_interval)
 

@@ -32,6 +32,11 @@ Capacity: intermediate doubling levels use exact worst-case capacities
 until they exceed the per-interval cap; the final per-interval bit lengths
 are exact, so any overflow of the cap is detected and reported for a
 lossless host-path fallback.
+
+The scan (`_entropy_pack_device`, which JAX jits) runs through a
+`_graph.Graphed` that its caller owns (ops/jpeg.py `_Stages`): its tables
+are device constants made once per device, and nothing in it waits for
+the host, so on a card it replays as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import to_device
+from .._device import constant_on
 
 # Worst-case bits for a single slot item (Annex-K tables: up to three folded
 # ZRLs at <=12 bits each plus a 16-bit AC code and 10 amplitude bits).
@@ -295,16 +300,17 @@ def _dc_diffs(mcu_blocks, comp_of_slot, n_iv: int):
 
 
 def _luts(device: torch.device):
-    """The Huffman and ZRL tables of both table ids, on `device`."""
+    """The Huffman and ZRL tables of both table ids, as device constants on
+    `device`."""
     from .jpeg import _HUFF  # canonical Annex-K tables
 
     luts = {}
     for tid in (0, 1):
         ac_c, ac_l = _HUFF[('ac', tid)]
         luts[tid] = dict(
-            dc=to_device(_huff_numpy_tables(*_HUFF[('dc', tid)])[:16], device),
-            ac=to_device(_huff_numpy_tables(ac_c, ac_l), device),
-            zrl=to_device(_zrl_prefixes(int(ac_c[0xF0]), int(ac_l[0xF0])), device),
+            dc=constant_on(_huff_numpy_tables(*_HUFF[('dc', tid)])[:16], device),
+            ac=constant_on(_huff_numpy_tables(ac_c, ac_l), device),
+            zrl=constant_on(_zrl_prefixes(int(ac_c[0xF0]), int(ac_l[0xF0])), device),
             eob=(int(ac_c[0x00]), int(ac_l[0x00])),
         )
     return luts
@@ -388,6 +394,16 @@ def _entropy_pack_device(comp_blocks, subsampling: int,
     return stream[0], iv_bytes, total_bits[0] // 32, overflow
 
 
+def _scan(subsampling: int, restart_interval: int, cap_words: int, *comp_blocks):
+    """_entropy_pack_device as its Graphed runs it (each block tensor an
+    argument of its own, so the capture key holds its shape): the stream
+    words, and the per-interval byte counts, the word count and the
+    overflow flag in one int64 tensor, the small readback."""
+    stream, iv_bytes, total_words, overflow = _entropy_pack_device(
+        comp_blocks, subsampling, restart_interval, cap_words)
+    return stream, torch.cat([iv_bytes, total_words[None], overflow[None].to(torch.int64)])
+
+
 def _stuff_bytes(seg: np.ndarray) -> np.ndarray:
     """0xFF -> 0xFF 0x00 stuffing (vectorized)."""
     is_ff = seg == 0xFF
@@ -415,7 +431,17 @@ def entropy_encode_device_dispatch(comp_blocks, subsampling: int,
     comp_blocks: per-component (N, 64) zigzag coefficient tensors (or
     arrays, taken to the CPU).
     restart_interval: MCUs per interval (> 0), or 0 for a single segment.
-    """
+    The scan replays the free functions' graph (ops/jpeg.py)."""
+    from .jpeg import _FREE
+
+    return _dispatch(_FREE.scan, comp_blocks, subsampling, restart_interval,
+                     cap_bytes_per_interval)
+
+
+def _dispatch(scan, comp_blocks, subsampling: int, restart_interval: int,
+              cap_bytes_per_interval: int | None = None):
+    """entropy_encode_device_dispatch with the scan run by `scan` (a
+    Graphed of `_scan`, or `_scan` itself to run it eagerly)."""
     comp_blocks = tuple(torch.as_tensor(cb) for cb in comp_blocks)
     n_mcu = (comp_blocks[1].shape[0]
              if (subsampling == 1 and len(comp_blocks) == 3)
@@ -431,10 +457,8 @@ def entropy_encode_device_dispatch(comp_blocks, subsampling: int,
         cap_bytes_per_interval = max(4096, ri * bpm * 40)
     cap_words = -(-int(cap_bytes_per_interval) // 4)
 
-    stream, iv_bytes, total_words, overflow = _entropy_pack_device(
-        comp_blocks, subsampling, ri, cap_words)
+    stream, small = scan(subsampling, ri, cap_words, *comp_blocks)
     pending = {'stream': stream, 'n_iv': n_iv, 'event': None}
-    small = torch.cat([iv_bytes, total_words[None], overflow[None].to(torch.int64)])
     if stream.is_cuda:
         host = torch.empty(small.shape, dtype=small.dtype, pin_memory=True)
         host.copy_(small, non_blocking=True)

@@ -25,14 +25,25 @@ The global quantities cross the shards explicitly:
 axis, each frame's rows over the band axis; bounds and metrics are
 batch-global, the green ratio and the Laplacian per frame.
 
-Compiled stages: the stage groups between the collectives run through
-`_graph.Graphed`, keyed on the block's shape and device: decode + WB +
-demosaic + colour smoothing with the green-eq sums of the band's rows (its
-row mask a tensor argument, so the blocks of one shape share a capture);
-normalize + Wiener + bilateral; the tonemap.  On a card the first block of
-a shape runs eagerly and captures, the others replay.  The collectives,
-the green-eq scaling, the sample and band slices and the Laplacian's
-full-frame path stay eager between the graphs.
+Compiled stages (JAX compiles the whole band body into one shard_map
+program): every step a device runs between the collectives goes through a
+`_graph.Graphed` (`run.graphs`), keyed on its inputs' shapes and device:
+- 'front': decode + WB + demosaic + colour smoothing, with the green-eq
+  sums of the band's rows (its row mask a tensor argument, so the blocks
+  of one shape share a capture);
+- 'green_eq': the frame's green-eq ratio applied to a block (the summed
+  G1 and G2 tensor arguments);
+- 'back': normalize + Wiener + bilateral;
+- with the local Laplacian, 'lab': a block's LAB and luminance;
+  'laplacian': the full-frame Laplacian, once a device; 'lab_modify': a
+  block's LAB with its rows of the result (a tensor argument);
+- 'tonemap'.
+On a card the first block of a shape runs eagerly and captures, the others
+replay.  What stays eager is what crosses devices, the counterpart of
+JAX's collectives: the gathers of the samples and of the core-band
+luminances, the sums of the green-eq sums, the replicas of the state and
+the Laplacian, and the bounds and metrics EMA on the first device.  The
+sample and band slices are views that those gathers copy.
 
 Alignment (checked, with the JAX package's messages): band and halo
 multiples of 8, and an integer bilateral sigma_s dividing both, so the
@@ -96,6 +107,10 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
         b = _postprocess.color_smoothing(b, settings.color_smoothing_passes)
         return (b, *_postprocess.green_eq_sums(b, bayer_pattern, in_band))
 
+    def green_eq_block(b, s1, s2):
+        """the frame's green equilibration of a block."""
+        return _postprocess.green_eq_apply(b, bayer_pattern, s1, s2)
+
     def back_block(b, bounds):
         """normalize, Wiener, bilateral of a block."""
         b = normalize_image(b, bounds)
@@ -105,9 +120,17 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
             b = st.bilateral(b)
         return b
 
+    clipped = settings.enable_denoise or settings.enable_bilateral
+
+    def lab_block(b):
+        """a block's LAB and luminance, the Laplacian's input."""
+        return st.lab_and_lum(b, input_clipped=clipped)
+
     pool = GraphPool()
-    front_graph, back_graph, tonemap_graph = (Graphed(f, pool=pool)
-                                              for f in (front_block, back_block, st.tonemap))
+    graphs = {name: Graphed(f, pool=pool) for name, f in (
+        ('front', front_block), ('green_eq', green_eq_block), ('back', back_block),
+        ('lab', lab_block), ('laplacian', st.laplacian),
+        ('lab_modify', _color.lab_modify_luminance), ('tonemap', st.tonemap))}
     in_band = {}   # (band offset, device) -> the block's (block, 1) row mask
 
     def band_mask(off, d):
@@ -118,14 +141,14 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
 
     def front_frame(rows, group, wb):
         """decode, WB, demosaic, postprocess on the frame's band blocks."""
-        fronts = [front_graph(put(rows[win:win + block], d), wb[d], band_mask(off, d))
+        fronts = [graphs['front'](put(rows[win:win + block], d), wb[d], band_mask(off, d))
                   for (win, off), d in zip(windows, group)]
         if not settings.postprocess:
             return fronts
         # green equilibration over the frame: sums of the bands' own rows
         s1 = reduce_sum([s for _, s, _ in fronts], group[0])
         s2 = reduce_sum([s for _, _, s in fronts], group[0])
-        return [_postprocess.green_eq_apply(b, bayer_pattern, put(s1, d), put(s2, d))
+        return [graphs['green_eq'](b, put(s1, d), put(s2, d))
                 for (b, _, _), d in zip(fronts, group)]
 
     def frame_samples(blocks):
@@ -133,16 +156,15 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
         return gather([b[off:off + band:8, ::8] for b, (_, off) in zip(blocks, windows)], first)
 
     def laplacian_frame(blocks, group):
-        clipped = settings.enable_denoise or settings.enable_bilateral
-        split = [st.lab_and_lum(b, input_clipped=clipped) for b in blocks]
+        split = [graphs['lab'](b) for b in blocks]
         lum = gather([lum[off:off + band] for (_, lum), (_, off) in zip(split, windows)], group[0])
-        lap = {d: st.laplacian(full) for d, full in replicate(lum, group).items()}
-        return [_color.lab_modify_luminance(lab, lap[d][win:win + block])
+        lap = {d: graphs['laplacian'](full) for d, full in replicate(lum, group).items()}
+        return [graphs['lab_modify'](lab, lap[d][win:win + block])
                 for (lab, _), (win, _), d in zip(split, windows, group)]
 
     def back_frame(blocks, group, bounds):
         """normalize, Wiener, bilateral, Laplacian on the frame's blocks."""
-        out = [back_graph(b, bounds[d]) for b, d in zip(blocks, group)]
+        out = [graphs['back'](b, bounds[d]) for b, d in zip(blocks, group)]
         return laplacian_frame(out, group) if settings.enable_laplacian else out
 
     def run(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
@@ -165,11 +187,12 @@ def _build_banded_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
                               put(metrics_in, first), alpha)
         on = replicate(metrics, all_devices)
         out = torch.stack([
-            gather([tonemap_graph(b, on[d])[off:off + band]
+            gather([graphs['tonemap'](b, on[d])[off:off + band]
                     for b, (_, off), d in zip(frame, windows, owner[f])], first)
             for f, frame in enumerate(blocks)])
         return out, bounds, metrics
 
+    run.graphs = graphs
     return run
 
 
@@ -190,6 +213,7 @@ def build_spatial_pipeline_fn(settings: ImageProcessingSettings, image_size: tup
         out, bounds, metrics = run(frame_bytes, wb_gains, bounds_in, metrics_in, alpha)
         return out[0], bounds, metrics
 
+    spatial.graphs = run.graphs
     return spatial
 
 

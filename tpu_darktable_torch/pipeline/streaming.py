@@ -71,8 +71,13 @@ class StreamingExecutor:
     def __post_init__(self):
         if self.jpeg_quality is not None:
             from ..jpeg import Jpeg
+            from ..ops.jpeg import _Stages
 
             self._jpeg = Jpeg()
+            # the encoder's graphs allocate from the processor's pool: one
+            # stream, and each replay clones its outputs before the next
+            # graph runs, so FULL's working set and the JPEG stages' overlap
+            self._jpeg._stages = _Stages(getattr(self.processor, '_graph_pool', None))
         if self.device_jpeg is None:
             self.device_jpeg = self.processor.device.type == 'cuda'
 

@@ -11,10 +11,13 @@ import numpy as np
 
 from ...jpeg import InputFormat, Jpeg
 
+# one encoder for every preview, so its CUDA graphs replay from frame to frame
+_JPEG = Jpeg()
+
 
 def encode_jpeg_bytes(image_u8: np.ndarray, quality: int, progressive: bool = False,
                       device=None) -> bytes:
-    data = Jpeg().encode(
+    data = _JPEG.encode(
         np.ascontiguousarray(image_u8), quality=quality,
         input_format=InputFormat.RGBI, progressive=progressive, device=device,
     )
