@@ -1,0 +1,173 @@
+"""The reference ISP: one frame at a time, plain PyTorch, in the order the
+measured program's batched program runs its stages.
+
+    decode12 -> white balance -> RCD -> postprocess      (front, per frame)
+    bounds EMA over the batch's stride-8 samples
+    normalize -> Wiener on log LAB-L -> bilateral        (back, per frame)
+    metrics EMA over the batch's stride-8 samples
+    tonemap -> uint8
+
+The stages are the frozen plain copies in `frozen/`.  With
+`lower_precision` every stage's output is rounded to bfloat16 before the
+next stage reads it: that is the control, the step below the float32 that
+the configuration states, which the comparison must reject.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .frozen.ops import bilateral as _bilateral
+from .frozen.ops import color as _color
+from .frozen.ops import packed as _packed
+from .frozen.ops import postprocess as _postprocess
+from .frozen.ops import rcd as _rcd
+from .frozen.ops import tonemap as _tonemap
+from .frozen.ops import white_balance as _wb
+from .frozen.ops import wiener as _wiener
+from .frozen.ops.bayer import BayerPattern
+from .frozen.transform import ImageTransform, transform
+from .frozen.util import lerp, normalize_image
+
+# the defaults of the settings the camera files leave out
+DEFAULTS = {
+    'tone_gamma': 0.75, 'tone_intensity': 2.0, 'light_adapt': 1.0, 'vibrance': 0.0,
+    'moving_average': 0.02, 'debayer': 'rcd', 'postprocess': False,
+    'color_smoothing_passes': 3, 'enable_bilateral': False, 'enable_laplacian': False,
+    'bilateral': 0.4, 'bil_sigma_spatial': 2.0, 'bil_sigma_luminance': 0.2,
+    'enable_denoise': True, 'denoise': 0.075, 'denoise_overlap': 4, 'denoise_f16': True,
+    'tone_mapping': 'reinhard', 'resize_width': 0,
+}
+
+
+@dataclass(frozen=True)
+class Camera:
+    """What the reference reads of a camera settings file."""
+
+    width: int
+    height: int
+    pattern: BayerPattern
+    ids: bool
+    padding: int
+    white_balance: tuple | None
+    transform: object            # an ImageTransform or {name: ImageTransform}
+    settings: dict
+
+    @staticmethod
+    def from_dict(d: dict) -> 'Camera':
+        s = dict(DEFAULTS)
+        s.update({k: v for k, v in d['image_processing'].items() if k != 'type'})
+        tf = d.get('transform', 'none')
+        tf = ({k: ImageTransform[v] for k, v in tf.items()} if isinstance(tf, dict)
+              else ImageTransform[tf])
+        wb = d.get('white_balance')
+        return Camera(int(d['image_size'][0]), int(d['image_size'][1]),
+                      BayerPattern[d.get('bayer_pattern', 'RGGB')],
+                      d.get('packed_format', 'Packed12') == 'Packed12_IDS',
+                      int(d.get('padding', 0)), None if wb is None else tuple(wb), tf, s)
+
+    def transform_of(self, name: str):
+        if isinstance(self.transform, dict):
+            return self.transform.get(name, ImageTransform.none)
+        return self.transform
+
+
+class ReferenceISP:
+    def __init__(self, camera: Camera, device, lower_precision: bool = False):
+        s = camera.settings
+        if s['debayer'] != 'rcd' or s['enable_laplacian'] or s['resize_width']:
+            raise NotImplementedError('the reference covers RCD, no Laplacian, no resize')
+        if s['tone_mapping'] not in ('aces', 'adaptive_aces'):
+            raise NotImplementedError(f"tone mapping {s['tone_mapping']}")
+        if s['enable_denoise'] and not s['denoise_f16']:
+            raise NotImplementedError('Wiener: the separable float16 route only')
+        self.camera = camera
+        self.s = s
+        self.device = torch.device(device)
+        self.lower = lower_precision
+        wb = camera.white_balance
+        self.wb = None if wb is None else torch.tensor(wb, dtype=torch.float32, device=self.device)
+        if self.device.type == 'cuda':
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    def _q(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.bfloat16).to(torch.float32) if self.lower else x
+
+    def front(self, packed: torch.Tensor) -> torch.Tensor:
+        """Packed bytes (n,) uint8 of one frame -> (H, W, 3) float32."""
+        c = self.camera
+        rows = packed.to(self.device)
+        if c.padding:
+            rows = rows[: -c.padding]
+        bayer = _packed.decode12_float(rows.reshape(c.height, (c.width * 3) // 2), ids_format=c.ids)
+        if self.wb is not None:
+            bayer = _wb.apply_white_balance(bayer, self.wb, c.pattern)
+        rgb = self._q(_rcd.rcd_demosaic(self._q(bayer), c.pattern, strict_alias=True))
+        if self.s['postprocess']:
+            rgb = _postprocess.postprocess(
+                rgb, c.pattern, color_smoothing_passes=self.s['color_smoothing_passes'],
+                green_eq_global_enabled=True)
+        return self._q(rgb)
+
+    def back(self, rgb: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+        s = self.s
+        rgb = self._q(normalize_image(rgb, bounds))
+        if s['enable_denoise']:
+            lab, lum = _color.rgb_to_lab_with_clipped_l(rgb)
+            log_lum = torch.log(torch.clamp(lum, min=1e-4))
+            f16 = torch.float16 if s['denoise_f16'] else None
+            den = _wiener.wiener_denoise(
+                log_lum[..., None], s['denoise'], tile_size=32,
+                overlap_factor=s['denoise_overlap'], use_separable=s['denoise_f16'],
+                spectral_dtype=f16, storage_dtype=f16)[..., 0]
+            rgb = self._q(_color.lab_modify_luminance(lab, torch.exp(den + 1e-4)))
+        if s['enable_bilateral']:
+            if s['enable_denoise']:
+                lab = _color.rgb_to_lab(rgb)
+                lum = lab[..., 0]
+            else:
+                lab, lum = _color.rgb_to_lab_with_clipped_l(rgb)
+            out = _bilateral.bilateral_process(lum, s['bil_sigma_spatial'],
+                                               s['bil_sigma_luminance'], s['bilateral'])
+            rgb = self._q(_color.lab_modify_luminance(lab, out))
+        return rgb
+
+    def tonemap(self, rgb: torch.Tensor, metrics: torch.Tensor) -> torch.Tensor:
+        s = self.s
+        params = _tonemap.TonemapParameters(s['tone_gamma'], s['tone_intensity'],
+                                            s['light_adapt'], s['vibrance'])
+        adaptive = metrics if s['tone_mapping'] == 'adaptive_aces' else None
+        return _tonemap.aces_tonemap(rgb, params, adaptive)
+
+    @staticmethod
+    def sample(rgb: torch.Tensor) -> torch.Tensor:
+        return rgb[::8, ::8]
+
+    @staticmethod
+    def batch_bounds(samples: list) -> torch.Tensor:
+        return _tonemap.compute_image_bounds(torch.stack(samples), stride=1)
+
+    @staticmethod
+    def batch_metrics(samples: list) -> torch.Tensor:
+        return _tonemap.compute_image_metrics(torch.stack(samples), stride=1)
+
+    def alpha(self, first: bool) -> torch.Tensor:
+        a = 1.0 if first else self.s['moving_average']
+        return torch.full((), a, dtype=torch.float32, device=self.device)
+
+    def run_batch(self, frames: list, bounds: torch.Tensor, metrics_in: torch.Tensor,
+                  alpha: torch.Tensor):
+        """The back half of one batch: `bounds` are the batch's bounds after
+        their EMA; returns (uint8 frames, metrics after their EMA)."""
+        rgbs = [self.back(self.front(f), bounds) for f in frames]
+        metrics = lerp(metrics_in, self.batch_metrics([self.sample(x) for x in rgbs]), alpha)
+        return [self.tonemap(x, metrics) for x in rgbs], metrics
+
+    def oriented(self, u8: torch.Tensor, name: str) -> torch.Tensor:
+        return transform(u8, self.camera.transform_of(name)).contiguous()
+
+
+__all__ = ['Camera', 'ReferenceISP', 'lerp']

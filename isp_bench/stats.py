@@ -1,0 +1,25 @@
+"""Order statistics over all samples of a window, never over the medians
+of chunks."""
+
+from __future__ import annotations
+
+import math
+
+
+def percentile(values, q: float) -> float:
+    """The q-th percentile (0-100) of all values, linear between the two
+    nearest ranks (numpy's default)."""
+    xs = sorted(float(v) for v in values)
+    if not xs:
+        raise ValueError('percentile of no values')
+    pos = (len(xs) - 1) * q / 100.0
+    lo = math.floor(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def median(values) -> float:
+    return percentile(values, 50.0)
+
+
+__all__ = ['median', 'percentile']
