@@ -83,6 +83,13 @@ static int emu_attribute_status = 0;
 extern "C" void emu_set_attribute_status(int status) { emu_attribute_status = status; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return emu_attribute_status; }
 inline int cudaGetLastError() { return 0; }
+// The card's nanosecond clock (%globaltimer), which a test sets, and the one
+// atomic the sources use: blocks and threads run one at a time here.
+static unsigned long long emu_clock_ns = 0;
+extern "C" void emu_set_clock(unsigned long long ns) { emu_clock_ns = ns; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p; *p = old + v; return old;
+}
 
 struct EmuCfg { dim3 grid, block; size_t smem; };
 inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t smem = 0, cudaStream_t = nullptr) { return {g, b, smem}; }
@@ -163,6 +170,7 @@ def emu_lib(tmp_path_factory):
         s = cu.read_text().replace('#include <cuda_runtime.h>', '#include "cuda_emu.h"')
         s = s.replace('#include <cuda_pipeline_primitives.h>', '')
         s = s.replace('extern __shared__ float smem[];', 'float* smem = emu_smem;')
+        s = s.replace('asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));', 't = emu_clock_ns;')
         s = re.sub(r'(\w+(?:<[^<>();]*>)?)\s*<<<(.*?)>>>\((.*?)\);', _launch, s, flags=re.S)
         cpp = out / f'{cu.stem}.cpp'
         cpp.write_text(s)
@@ -196,6 +204,28 @@ def test_rcd_interior_source_on_host(emu_lib, rng, pattern, h, w):
     ref = rcd_interior_plain(torch.from_numpy(x), r_par=rp, b_par=bp).numpy()
     r = RING
     np.testing.assert_array_equal(out[:, r:-r, r:-r], ref[:, r:-r, r:-r])
+
+
+def test_mark_source_on_host(emu_lib):
+    """The tracer's mark: each launch appends (the card's clock, its id) at
+    the slot its atomicAdd on the count takes, modulo the ring's capacity,
+    so the ring keeps the newest marks."""
+    capacity = 3
+    count = np.zeros(1, np.int64)
+    ring = np.full((capacity, 2), -1, np.int64)
+    lib = emu_lib['mark']
+    fn = lib.trace_mark_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.emu_set_clock.argtypes = [ctypes.c_ulonglong]
+    for k in range(5):
+        lib.emu_set_clock(10**12 + 1000 * k)
+        assert fn(_p(count), _p(ring), capacity, 70 + k, None) == 0
+    assert count[0] == 5
+    # marks 3 and 4 took slots 0 and 1 again; mark 2 is the oldest left
+    np.testing.assert_array_equal(ring, [[10**12 + 3000, 73], [10**12 + 4000, 74],
+                                         [10**12 + 2000, 72]])
 
 
 def test_rcd_interior_source_refuses_non_bayer_sites(emu_lib):

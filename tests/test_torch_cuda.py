@@ -943,3 +943,156 @@ def test_band_glue_graphed_equals_eager_on_card(dev, case):
         graphed(data, *state)
     finally:
         torch.cuda.set_sync_debug_mode('default')
+
+
+# ---- the tracer (utils/timing.py) on the card
+
+def _camera(name, w, h):
+    import json
+    from pathlib import Path
+
+    from tpu_darktable_torch.pipeline.camera_settings import CameraSettings
+
+    path = Path(__file__).resolve().parent.parent / 'tpu_darktable_torch' / 'camera_settings'
+    d = json.loads((path / f'{name}.json').read_text())
+    return CameraSettings.from_dict(dict(d, image_size=[w, h]))
+
+
+def _stream_frames(cs, n, seed):
+    """(name, packed bytes on the host) of n smooth noisy mosaics."""
+    from tpu_darktable_torch.ops.bayer import PackedFormat
+    from tpu_darktable_torch.ops.packed import encode12_float
+
+    w, h = cs.image_size
+    names = list(cs.transform) if isinstance(cs.transform, dict) else ['frame']
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(n):
+        mosaic = np.clip(0.4 + 0.3 * np.sin(xx / (9.0 + i)) * np.cos(yy / 7.0)
+                         + rng.normal(0, 0.04, (h, w)), 0, 1).astype(np.float32)
+        packed = encode12_float(torch.from_numpy(mosaic.reshape(-1)),
+                                ids_format=cs.packed_format is PackedFormat.Packed12_IDS)
+        out.append((names[i % len(names)], packed.numpy()))
+    return out
+
+
+def _stream_through(dev, cs, frames, batch, traced):
+    """The executor's results (uint8 frames and JFIF bytes, device JPEG) of
+    a fresh processor, with the tracer on or off for the whole run."""
+    from tpu_darktable_torch.pipeline.image_processor import ImageProcessor
+    from tpu_darktable_torch.pipeline.streaming import StreamingExecutor
+    from tpu_darktable_torch.utils import timing
+
+    timing.reset()
+    if traced:
+        timing.enable()
+    try:
+        proc = ImageProcessor.from_camera_settings(cs, device=dev)
+        ex = StreamingExecutor(proc, batch_size=batch, jpeg_quality=90, keep_images=True,
+                               device_jpeg=True)
+        results = ex.run(frames)
+        marks = timing.marks()
+    finally:
+        timing.disable()
+    return results, marks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('camera,batch', [('artichoke', 2), ('beetroot', 12)],
+                         ids=['FULL', 'rig'])
+def test_tracing_leaves_the_outputs_bit_identical(dev, camera, batch):
+    """FULL (the artichoke camera) and the rig at 1024x768, three batches
+    through the streaming executor with device JPEG: the uint8 frames and
+    the JFIF bytes with the tracer on equal those with it off, and the
+    traced run records every mark of every call (RCD's interior mark a
+    frame on the card's kernel path)."""
+    cs = _camera(camera, 1024, 768)
+    frames = _stream_frames(cs, 3 * batch, seed=41)
+    plain, none = _stream_through(dev, cs, frames, batch, traced=False)
+    traced, marks = _stream_through(dev, cs, frames, batch, traced=True)
+    assert none == []
+    assert [r.name for r in plain] == [r.name for r in traced]
+    for a, b in zip(plain, traced):
+        assert a.error is None and b.error is None
+        assert np.array_equal(a.image, b.image) and a.jpeg == b.jpeg, a.name
+    per_frame = ['decode', 'rcd.interior', 'demosaic', 'postprocess']
+    back = ['normalize', 'denoise', 'bilateral']
+    want = ['begin'] + per_frame * batch + ['bounds'] + back * batch + ['metrics', 'tonemap']
+    calls = {}
+    for m in marks:
+        calls.setdefault(m.call, []).append(m.name)
+    program = [c for c in calls.values() if c[0] == 'begin']
+    assert program == [want] * 3
+    assert [c for c in calls.values() if c[0] == 'jpeg.begin'] == \
+        [['jpeg.begin', 'jpeg.dct', 'jpeg.scan']] * (3 * batch)
+    assert {m.device.type for m in marks} == {'cuda'}
+
+
+@pytest.mark.cuda
+def test_marks_sum_to_the_events_span_of_the_calls(dev):
+    """FULL at 4096x3000, batches of 2 on the card, replayed: the card time
+    from each call's first mark to its last, summed over four calls, is
+    within 5% of the CUDA events' span around the same process_batch
+    calls (which adds the graph's copy-in and the clones of its outputs)."""
+    from test_torch_graph import case_frames, case_settings
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch.utils import timing
+
+    w, h = 4096, 3000
+    timing.reset()
+    timing.enable()
+    try:
+        proc = tt.ImageProcessor((w, h), BayerPattern.RGGB, tt.PackedFormat.Packed12,
+                                 case_settings('full'), device=dev,
+                                 white_balance=(1.2, 1.0, 1.1))
+        frames = case_frames(w, h, 2, seed=42).to(dev)
+        proc.process_batch(frames)          # eager, then the capture
+        proc.process_batch(frames)
+        torch.cuda.synchronize()
+        timing.reset()
+        spans = []
+        for _ in range(4):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            proc.process_batch(frames)
+            ev[1].record()
+            spans.append(ev)
+        torch.cuda.synchronize()
+        marks = timing.marks()
+    finally:
+        timing.disable()
+    events_ms = sum(a.elapsed_time(b) for a, b in spans)
+    calls = {}
+    for m in marks:
+        calls.setdefault(m.call, []).append(m.ns)
+    assert len(calls) == 4
+    marks_ms = sum(max(ns) - min(ns) for ns in calls.values()) * 1e-6
+    assert 0.95 * events_ms <= marks_ms <= events_ms, (marks_ms, events_ms)
+
+
+@pytest.mark.cuda
+def test_traced_processor_on_a_card_that_is_not_the_current_one(dev):
+    """With two cards or more: FULL at 256x192 through the streaming
+    executor with device JPEG on cuda:1 while cuda:0 stays the current
+    device.  With the tracer on, the eager first call, the capture, the
+    replays and every JPEG encode mark on cuda:1's streams and ring, and
+    the frames and JFIF bytes equal those with the tracer off."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices or more')
+    card = torch.device('cuda', 1)
+    torch.cuda.set_device(0)
+    cs = _camera('artichoke', 256, 192)
+    frames = _stream_frames(cs, 3 * 2, seed=43)
+    plain, _ = _stream_through(card, cs, frames, 2, traced=False)
+    traced, marks = _stream_through(card, cs, frames, 2, traced=True)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(plain, traced, strict=True):
+        assert a.error is None and b.error is None
+        assert np.array_equal(a.image, b.image) and a.jpeg == b.jpeg, a.name
+    calls = {}
+    for m in marks:
+        calls.setdefault(m.call, []).append(m.name)
+    assert sum(c[0] == 'begin' for c in calls.values()) == 3
+    assert sum(c == ['jpeg.begin', 'jpeg.dct', 'jpeg.scan'] for c in calls.values()) == 6
+    assert {m.device for m in marks} == {card}

@@ -390,5 +390,6 @@ def test_port_imports_without_jax():
     import re
     bad = re.compile(r'^\s*(import jax|from jax|import tpu_darktable[. ]|import tpu_darktable$'
                      r'|from tpu_darktable[. ])', re.M)
-    for path in [*sorted((REPO / 'tpu_darktable_torch').rglob('*.py')), REPO / 'chip_smoke.py']:
+    for path in [*sorted((REPO / 'tpu_darktable_torch').rglob('*.py')), REPO / 'chip_smoke.py',
+                 REPO / 'chip_trace.py']:
         assert not bad.search(path.read_text()), path

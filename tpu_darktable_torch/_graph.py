@@ -44,7 +44,14 @@ What a captured graph needs after its capture:
   eager fallback.
 
 The kernel launch counts (kernels.launches) mean launches that ran: a
-capture adds nothing, each replay adds what its capture recorded.
+capture adds nothing, each replay adds what its capture recorded.  The
+tracer's device marks (utils/timing.py) are kept the same way: a capture
+keeps the marks it made, each replay logs them.  While the tracer is on,
+the key that a wrapper looks its captures up by also holds the tracing
+state, so a graph captured with marks is never replayed without the
+tracer, nor one without marks under it; each replay is a `graph.replay`
+span, each capture a `graph.capture` span and a count of
+`graph.captures`, under the owner's name (the function's qualname).
 
 The captures of one wrapper sit in a bounded LRU (`_MAXSIZE` keys); a
 dropped entry frees its graph, its static buffers and outputs, and the
@@ -75,7 +82,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -83,6 +89,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _device, kernels
+from .utils import timing
 
 # the captures a Graphed wrapper keeps (its least recently used goes first)
 _MAXSIZE = 8
@@ -144,10 +151,9 @@ def capture_key(args) -> tuple:
                  else (type(a), a) for a in args)
 
 
-def _device_index(args) -> int:
-    """The CUDA device of the arguments (-1, which torch.cuda.device takes
-    for no device, for the stand-in the CPU tests use)."""
-    dev = next(a.device for a in args if _on_card(a))
+def _device_index(dev: torch.device) -> int:
+    """The index of a CUDA device (-1, which torch.cuda.device takes for no
+    device, for the stand-in the CPU tests use)."""
     return dev.index if dev.type == 'cuda' else -1
 
 
@@ -180,7 +186,8 @@ class _Captured:
     single: bool             # fn returned one tensor, not a tuple
     held: list               # the device constants it read
     launches: dict           # kernel launches a replay runs, by name
-    seconds: float           # host seconds the capture took
+    marks: list              # the tracer's marks a replay records: (id, name)
+    device: torch.device     # its device
     index: int               # its CUDA device
 
     def replay(self, args):
@@ -188,6 +195,8 @@ class _Captured:
             for buf, a in zip(self.inputs, args):
                 if isinstance(buf, torch.Tensor):
                     buf.copy_(a)
+            if self.marks:
+                timing.replayed(self.marks, self.device)
             self.graph.replay()
             out = tuple(t.clone() for t in self.outputs)
         kernels.add_launches(self.launches)
@@ -204,17 +213,21 @@ class Graphed:
         self.fn = fn
         self.stages = getattr(fn, 'stages', None)
         self.pool = GraphPool() if pool is None else pool
+        self.owner = getattr(fn, '__qualname__', None) or repr(fn)
         self._captured: OrderedDict[tuple, _Captured] = OrderedDict()
 
     def __call__(self, *args):
         if not any(_on_card(a) for a in args):
             return self.fn(*args)
         key = capture_key(args)
+        if timing.tracing():
+            key += timing.TRACED
         with self.pool.lock:
             entry = self._captured.get(key)
             if entry is not None:
                 self._captured.move_to_end(key)
-                return entry.replay(args)
+                with timing.span('graph.replay', owner=self.owner):
+                    return entry.replay(args)
             out = self.fn(*args)
             while len(self._captured) >= _MAXSIZE:
                 self._captured.popitem(last=False)
@@ -224,19 +237,20 @@ class Graphed:
     def _capture(self, args, key) -> _Captured:
         inputs = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
         graph = _new_graph()
-        index = _device_index(args)
-        t0 = time.perf_counter()
+        device = next(a.device for a in args if _on_card(a))
+        index = _device_index(device)
         try:
-            with _capture_lock, kernels.uncounted() as made, _device.holding() as held, \
-                    torch.cuda.device(index):
+            with timing.span('graph.capture', owner=self.owner), _capture_lock, \
+                    kernels.uncounted() as made, timing.capturing() as marks, \
+                    _device.holding() as held, torch.cuda.device(index):
                 outputs = _record(graph, self.pool.handle(index, graph), self.fn, inputs)
         except Exception as e:
-            name = getattr(self.fn, '__qualname__', None) or repr(self.fn)
-            raise RuntimeError(f'capturing {name} as a CUDA graph failed for inputs {key}: '
+            raise RuntimeError(f'capturing {self.owner} as a CUDA graph failed for inputs {key}: '
                                f'{e}') from e
+        timing.count('graph.captures', self.owner)
         single = isinstance(outputs, torch.Tensor)
         return _Captured(graph, inputs, (outputs,) if single else tuple(outputs), single, held,
-                         made, time.perf_counter() - t0, index)
+                         made, marks, device, index)
 
 
 __all__ = ['GraphPool', 'Graphed', 'capture_key']

@@ -32,6 +32,8 @@ SOURCES = {
     'nlm_core': 'nlm.cu',
     'wiener_tile_core': 'wiener_core.cu',
     'bilateral_fused': 'bilateral_fused.cu',
+    # the tracer's device mark (utils/timing.py), not a kernel of the pipeline
+    'trace_mark': 'mark.cu',
 }
 # --fmad=false: no a*b+c contraction, so the kernels round like their plain
 # versions.  Never --use_fast_math: pow/exp/division must stay IEEE.

@@ -42,6 +42,7 @@ import torch
 from .._device import constant_on, resolve_device
 from .._graph import GraphPool, Graphed
 from ..native import jpeg_encode_baseline_native, pack_bits
+from ..utils import timing
 from .jpeg_entropy import _dispatch, _scan, entropy_encode_device_finalize
 
 
@@ -706,17 +707,21 @@ class PendingJpeg:
         self._meta = (h, w, qy, qc, subsampling, n_comp, restart_interval)
 
     def result(self) -> np.ndarray:
-        """Wait for the device work and return the full JFIF bitstream."""
+        """Wait for the device work and return the full JFIF bitstream
+        (the `jpeg.result` span; `jpeg.wait` inside it, where the host
+        waits for the card)."""
         h, w, qy, qc, subsampling, n_comp, restart_interval = self._meta
-        body = entropy_encode_device_finalize(self._pending)
-        if body is not None:
-            return _assemble(body, h, w, qy, qc, subsampling, n_comp,
-                             restart_interval)
-        # Device capacity overflow: lossless host-path fallback from the
-        # retained coefficient blocks.
-        return _host_entropy_bitstream(
-            self._comp_blocks_dev, h, w, qy, qc, subsampling, n_comp,
-            restart_interval)
+        with timing.span('jpeg.result'):
+            body = entropy_encode_device_finalize(self._pending)
+            if body is not None:
+                return _assemble(body, h, w, qy, qc, subsampling, n_comp,
+                                 restart_interval)
+            # Device capacity overflow: lossless host-path fallback from the
+            # retained coefficient blocks.
+            timing.count('jpeg.host_fallbacks')
+            return _host_entropy_bitstream(
+                self._comp_blocks_dev, h, w, qy, qc, subsampling, n_comp,
+                restart_interval)
 
 
 def encode_jpeg_async(
@@ -739,12 +744,18 @@ def encode_jpeg_async(
 
 def _encode_async(stages: _Stages, image, quality, input_format, subsampling,
                   restart_interval, device) -> PendingJpeg:
-    """encode_jpeg_async through the programs of `stages`."""
-    (h, w, qy, qc, comp_blocks_dev, n_comp) = _prepare_device_stage(
-        image, quality, input_format, subsampling, device, stages.dct)
-    restart_interval = _resolve_restart_interval(
-        restart_interval, w, subsampling, n_comp, comp_blocks_dev)
-    pending = _dispatch(stages.scan, comp_blocks_dev, subsampling, restart_interval)
+    """encode_jpeg_async through the programs of `stages`, a traced call
+    whose marks split the DCT stage (`jpeg.begin` to `jpeg.dct`) from the
+    entropy scan (to `jpeg.scan`)."""
+    dev = image.device if isinstance(image, torch.Tensor) else resolve_device(device)
+    with timing.call('jpeg.begin', dev):
+        (h, w, qy, qc, comp_blocks_dev, n_comp) = _prepare_device_stage(
+            image, quality, input_format, subsampling, device, stages.dct)
+        timing.mark('jpeg.dct')
+        restart_interval = _resolve_restart_interval(
+            restart_interval, w, subsampling, n_comp, comp_blocks_dev)
+        pending = _dispatch(stages.scan, comp_blocks_dev, subsampling, restart_interval)
+        timing.mark('jpeg.scan')
     return PendingJpeg(pending, comp_blocks_dev, h, w, qy, qc, subsampling,
                        n_comp, restart_interval)
 

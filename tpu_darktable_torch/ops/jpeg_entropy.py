@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import constant_on
+from ..utils import timing
 
 # Worst-case bits for a single slot item (Annex-K tables: up to three folded
 # ZRLs at <=12 bits each plus a 16-bit AC code and 10 amplitude bits).
@@ -492,7 +493,8 @@ def entropy_encode_device_finalize(pending):
     bytes (numpy uint8) or None if the device capacity overflowed (caller
     falls back to the host path)."""
     if pending['event'] is not None:
-        pending['event'].synchronize()
+        with timing.span('jpeg.wait'):
+            pending['event'].synchronize()
     small = pending['small'].numpy()
     n_iv = pending['n_iv']
     iv_bytes, used, overflow = small[:n_iv], int(small[n_iv]), bool(small[n_iv + 1])

@@ -23,6 +23,7 @@ import torch
 from .._device import scalar_on
 from .._validate import as_mosaic
 from ..kernels.rcd_interior import rcd_interior
+from ..utils import timing
 from .bayer import BayerPattern, site_parities
 from .demosaic import bilinear5x5_demosaic, border_interpolate, ppg_green, ppg_redblue
 from ._stencil import Shifter, interior_mask, row_col_iota, site_masks
@@ -114,6 +115,7 @@ def _rcd_kernel_path(x: torch.Tensor, pattern: BayerPattern, strict_alias: bool)
     h, w = x.shape
     rp, bp = site_parities(pattern)
     interior = rcd_interior(x, r_par=rp, b_par=bp).permute(1, 2, 0)
+    timing.mark('rcd.interior')   # from here to the demosaic mark: the edge strips and the cats
     top, bottom, left, right = _rcd_edge_strips(x, pattern, strict_alias)
     r = _RING
     mid = torch.cat([left[r : h - r, :r], interior[r : h - r, r : w - r],

@@ -50,6 +50,7 @@ from ..ops import tonemap as _tonemap
 from ..ops import white_balance as _wb
 from ..ops import wiener as _wiener
 from ..ops.bayer import BayerPattern, PackedFormat
+from ..utils import timing
 from .camera_settings import CameraSettings
 from .config import Debayer, ImageProcessingSettings, ToneMapper
 from .transform import ImageTransform, transform
@@ -159,12 +160,16 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
         raise AssertionError(f'Invalid debayer method: {settings.debayer}')
 
     def _front_one(frame_rows, wb_gains):
-        rgb = demosaic(decode(frame_rows, wb_gains))
+        bayer = decode(frame_rows, wb_gains)
+        timing.mark('decode')
+        rgb = demosaic(bayer)
+        timing.mark('demosaic')
         if settings.postprocess:
             rgb = _postprocess.postprocess(
                 rgb, bayer_pattern, color_smoothing_passes=settings.color_smoothing_passes,
                 green_eq_local_enabled=False, green_eq_global_enabled=True,
                 green_eq_threshold=settings.green_eq_threshold)
+            timing.mark('postprocess')
         return rgb
 
     # Each luminance stage extracts LAB L and writes it back.  When the
@@ -207,12 +212,16 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
 
     def _back_one(rgb, bounds):
         rgb = normalize_image(rgb, bounds)
+        timing.mark('normalize')
         if settings.enable_denoise:
             rgb = denoise(rgb)
+            timing.mark('denoise')
         if settings.enable_bilateral:
             rgb = bilateral(rgb)
+            timing.mark('bilateral')
         if settings.enable_laplacian:
             rgb = _laplacian_one(rgb)
+            timing.mark('laplacian')
         return rgb
 
     def front(bytes_batch, wb_gains):
@@ -235,11 +244,19 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
         return _tonemap_dispatch(settings, rgb, metrics)
 
     def fused(bytes_batch, wb_gains, bounds_in, metrics_in, alpha):
-        rgb, samples = front(bytes_batch, wb_gains)
-        bounds = ema_bounds(samples, bounds_in, alpha)
-        rgb, samples = back(rgb, samples, bounds)
-        metrics = ema_metrics(samples, metrics_in, alpha)
-        return tonemap(rgb, metrics), bounds, metrics
+        # a traced call: its marks time each stage on the device (a stage
+        # runs from the mark before it to its own); the stages that the
+        # sharded programs run outside it are unmarked
+        with timing.call('begin', bytes_batch.device):
+            rgb, samples = front(bytes_batch, wb_gains)
+            bounds = ema_bounds(samples, bounds_in, alpha)
+            timing.mark('bounds')
+            rgb, samples = back(rgb, samples, bounds)
+            metrics = ema_metrics(samples, metrics_in, alpha)
+            timing.mark('metrics')
+            out = tonemap(rgb, metrics)
+            timing.mark('tonemap')
+        return out, bounds, metrics
 
     fused.stages = PipelineStages(
         decode=decode, demosaic=demosaic, front=front, sample=sample, back=back,
@@ -432,24 +449,27 @@ class ImageProcessor:
 
     def process_batch(self, bytes_batch) -> torch.Tensor:
         """Run the pipeline on a (B, n_bytes) uint8 batch (numpy or tensor),
-        updating the EMA state.  Returns (B, H, W, 3) uint8 on the device."""
-        bytes_batch = self._as_bytes(bytes_batch)
-        if bytes_batch.ndim == 1:
-            bytes_batch = bytes_batch[None]
-        if bytes_batch.shape[-1] != self.expected_bytes:
-            raise self._mismatch(f'Image size mismatch: expected {self.expected_bytes} bytes, '
-                                 f'got {bytes_batch.shape[-1]} bytes.')
-        if self.padding > 0:
-            bytes_batch = bytes_batch[:, : -self.padding]
-        if self.mesh is not None and bytes_batch.shape[0] % self.mesh.size != 0:
-            raise ValueError(f'batch size {bytes_batch.shape[0]} must be divisible by the '
-                             f'mesh size {self.mesh.size} for sharded processing')
-        first = self.bounds is None
-        f32 = dict(dtype=torch.float32, device=self.device)
-        alpha = torch.full((), 1.0 if first else self.settings.moving_average, **f32)
-        bounds_in = torch.zeros(2, **f32) if first else self.bounds
-        metrics_in = torch.zeros(5, **f32) if first else self.metrics
-        wb = self.white_balance if self.white_balance is not None else torch.ones(3, **f32)
+        updating the EMA state.  Returns (B, H, W, 3) uint8 on the device.
+        The `isp.input` span runs to the call of the program: the checks,
+        the batch's copy to the device and the EMA inputs."""
+        with timing.span('isp.input'):
+            bytes_batch = self._as_bytes(bytes_batch)
+            if bytes_batch.ndim == 1:
+                bytes_batch = bytes_batch[None]
+            if bytes_batch.shape[-1] != self.expected_bytes:
+                raise self._mismatch(f'Image size mismatch: expected {self.expected_bytes} '
+                                     f'bytes, got {bytes_batch.shape[-1]} bytes.')
+            if self.padding > 0:
+                bytes_batch = bytes_batch[:, : -self.padding]
+            if self.mesh is not None and bytes_batch.shape[0] % self.mesh.size != 0:
+                raise ValueError(f'batch size {bytes_batch.shape[0]} must be divisible by the '
+                                 f'mesh size {self.mesh.size} for sharded processing')
+            first = self.bounds is None
+            f32 = dict(dtype=torch.float32, device=self.device)
+            alpha = torch.full((), 1.0 if first else self.settings.moving_average, **f32)
+            bounds_in = torch.zeros(2, **f32) if first else self.bounds
+            metrics_in = torch.zeros(5, **f32) if first else self.metrics
+            wb = self.white_balance if self.white_balance is not None else torch.ones(3, **f32)
         out, self.bounds, self.metrics = self._fused(bytes_batch, wb, bounds_in, metrics_in, alpha)
         return out
 

@@ -19,6 +19,11 @@ of that encode only) while batch N+1 computes.  Only the packed streams
 cross to the host.  Host-JPEG mode reads each batch's frames back and
 encodes them in worker threads with the host entropy scan (the native
 packer releases the GIL).
+
+Spans (utils/timing.py), each batch numbered in feed order (`seq`):
+`stream.flush` (the batch's `stream.stack`, its process_batch and, in
+device-JPEG mode, its `stream.jpeg_dispatch`) and `stream.drain`, which
+starts once the next batch is flushed (or the feed has ended).
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+
+from ..utils import timing
 
 
 @dataclass
@@ -121,9 +128,10 @@ class StreamingExecutor:
                 t.start()
 
         pending = 0
+        flushed = 0
         batch_names: list[str] = []
         batch_bytes: list = []
-        inflight: list[tuple[list[str], object]] = []
+        inflight: list[tuple[int, list[str], object]] = []
 
         def _resolve_transform(name):
             from .transform import ImageTransform
@@ -163,8 +171,12 @@ class StreamingExecutor:
             return pend
 
         def _drain_device(batch):
+            seq, names, payload = batch
+            with timing.span('stream.drain', seq=seq):
+                _drain(names, payload)
+
+        def _drain(names, payload):
             nonlocal pending
-            names, payload = batch
             if use_device_jpeg:
                 # Host side only: read back the compressed streams (and the
                 # frame itself if keep_images).  All device work was already
@@ -198,13 +210,20 @@ class StreamingExecutor:
                         on_result(r)
 
         def _flush_batch():
+            nonlocal flushed
             if not batch_names:
                 return
-            out = self.processor.process_batch(torch.stack([torch.as_tensor(b)
-                                                            for b in batch_bytes]))
-            payload = (_dispatch_device_jpeg(batch_names, out)
-                       if use_device_jpeg else out)
-            inflight.append((list(batch_names), payload))
+            seq, flushed = flushed, flushed + 1
+            with timing.span('stream.flush', seq=seq):
+                with timing.span('stream.stack'):
+                    stacked = torch.stack([torch.as_tensor(b) for b in batch_bytes])
+                out = self.processor.process_batch(stacked)
+                if use_device_jpeg:
+                    with timing.span('stream.jpeg_dispatch', seq=seq):
+                        payload = _dispatch_device_jpeg(batch_names, out)
+                else:
+                    payload = out
+            inflight.append((seq, list(batch_names), payload))
             batch_names.clear()
             batch_bytes.clear()
             # keep at most one batch in flight: drain the older one while the

@@ -1,4 +1,5 @@
-"""Per-stage timing and profiling (counterpart of tpu_darktable/utils/timing.py).
+"""Timing, profiling and the port's tracer (counterpart of
+tpu_darktable/utils/timing.py).
 
 Analog of the reference's opt-in CudaTimer (csrc/cuda_utils.h:40-77, used in
 laplacian.cu:464-475) and the CUDA-event benchmark harness
@@ -12,18 +13,335 @@ laplacian.cu:464-475) and the CUDA-event benchmark harness
   once as a CUDA graph and its replays are timed (JAX times one jitted
   lax.scan of the chain).
 - trace_to: context manager around torch.profiler.
+
+The tracer.  Off by default; `enable()` turns it on, before the program
+captures the graphs it should trace.  While it is off, `span` and `mark`
+return after one flag check: nothing is recorded, launched or captured.
+
+- Host spans: `with span(name, **attrs):` records (name, thread, start and
+  end on time.perf_counter, attrs, the enclosing span's name) into a
+  bounded buffer, read by `spans()`.  While a torch profiler records, the
+  span is also a `torch.profiler.record_function` range of its name, so it
+  shows in the profile beside the device's work (`trace_to`).
+- Device marks: `mark(name)` records the device's time where the program
+  reaches it on the current stream.  On a card it launches a one-thread
+  kernel (csrc/mark.cu) that reads the card's nanosecond clock and appends
+  (time, mark id) to the card's ring; on the CPU it writes
+  time.perf_counter_ns() into the CPU's ring.  Inside a CUDA graph capture
+  the kernel becomes part of the graph and records on every replay.  A
+  mark records only inside a traced call (`call(name, device)`, which
+  marks `name` first): the batched program and the JPEG encode open one,
+  so the programs that reuse their stages elsewhere (the sharded programs
+  of parallel/, the piecewise workspaces) stay unmarked.  The host keeps
+  its own log of the marks it enqueued, as kernels.launches counts
+  launches: a capture keeps its marks (`capturing`), and each replay logs
+  them with the host time of the replay and the call it belongs to
+  (`replayed`).  `marks()` reads the rings back once, after the work: no
+  synchronisation on the path.
+- Counters: `count(name, key)`; `counters()` reads them with
+  kernels.launches.
+
+Names recorded by the port (what reads each: PERF.md, section 3):
+spans `isp.input`, `graph.replay`, `graph.capture`, `stream.stack`,
+`stream.flush`, `stream.jpeg_dispatch`, `stream.drain`, `jpeg.result`,
+`jpeg.wait` and StageTimer's stages; marks `begin`, `decode`, `demosaic`,
+`rcd.interior`, `postprocess`, `bounds`, `normalize`, `denoise`,
+`bilateral`, `laplacian`, `metrics`, `tonemap` (the batched program) and
+`jpeg.begin`, `jpeg.dct`, `jpeg.scan` (a JPEG encode); counters
+`graph.captures` (by owner) and `jpeg.host_fallbacks`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import itertools
 import os
+import threading
 import time
+from collections import deque
+from typing import NamedTuple
 
 import torch
 
-from .._graph import Graphed
+from .. import kernels
 
+# marks a device's ring keeps, and spans and logged marks the host keeps
+CAPACITY = 1 << 20
+# what a capture key gains while tracing is on (_graph.Graphed)
+TRACED = ('traced',)
+
+_on = False
+# .stack: the thread's open spans; .call, .device: its traced call and the
+# call's device; .capture: the marks of the capture under way, or None
+_local = threading.local()
+_lock = threading.Lock()
+_spans: deque = deque(maxlen=CAPACITY)
+_log: deque = deque(maxlen=CAPACITY)     # (mark id, name, call, host s, device)
+_rings: dict = {}                        # device -> _Ring, kept for good
+_ids = itertools.count(1)
+_calls = itertools.count(1)
+_counts: dict = {'graph.captures': {}, 'jpeg.host_fallbacks': 0}
+
+
+class Span(NamedTuple):
+    name: str
+    thread: int
+    start: float          # time.perf_counter seconds
+    end: float
+    attrs: dict
+    parent: str | None    # the enclosing span's name in its thread
+
+
+class Mark(NamedTuple):
+    name: str
+    call: int             # the traced call it belongs to
+    host: float           # time.perf_counter seconds of its enqueue or replay
+    device: torch.device
+    ns: int               # the device's clock (the card's %globaltimer, or perf_counter_ns)
+
+
+def tracing() -> bool:
+    return _on
+
+
+def enable() -> None:
+    """Turn the tracer on.  Makes each card's ring (CAPACITY marks, 16
+    bytes each) now, outside any capture: a captured mark writes to it on
+    every replay, so a ring is never freed."""
+    global _on
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            _ring(torch.device('cuda', i))
+    _on = True
+
+
+def disable() -> None:
+    global _on
+    _on = False
+
+
+def reset() -> None:
+    """Forget the spans and logged marks and zero the tracer's counters (the
+    rings' older marks are not read back again).  kernels.launches is the
+    kernels' own: kernels.reset_launches() zeroes it."""
+    _spans.clear()
+    _log.clear()
+    with _lock:
+        _counts['graph.captures'] = {}
+        _counts['jpeg.host_fallbacks'] = 0
+
+
+# ---- spans ----
+
+class _Span:
+    __slots__ = ('name', 'attrs', 'start', 'range', 'parent')
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = getattr(_local, 'stack', None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.range = None
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _local.stack.pop()
+        _spans.append(Span(self.name, threading.get_ident(), self.start, end, self.attrs,
+                           self.parent))
+        return False
+
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str, **attrs):
+    """Context manager: the block as a host span (see the module docstring)."""
+    if not _on:
+        return _NULL
+    return _Span(name, attrs)
+
+
+def spans() -> list[Span]:
+    return list(_spans)
+
+
+# ---- marks ----
+
+class _Ring:
+    """A device's marks: `data` (capacity, 2) int64 rows of (time, id) and
+    `count`, the marks ever written."""
+
+    def __init__(self, device):
+        self.capacity = CAPACITY
+        self.data = torch.zeros((CAPACITY, 2), dtype=torch.int64, device=device)
+        self.count = torch.zeros(1, dtype=torch.int64, device=device)
+
+
+def _ring(device: torch.device) -> _Ring:
+    ring = _rings.get(device)
+    if ring is None:
+        ring = _rings[device] = _Ring(device)
+    return ring
+
+
+_launcher = None
+
+
+def _launch(ring: _Ring, mark_id: int, device: torch.device) -> None:
+    """The mark kernel on `device`'s current stream (a capture's, inside one)."""
+    global _launcher
+    from ..kernels._build import check, load
+
+    if _launcher is None:
+        fn = load('trace_mark').trace_mark_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launcher = fn
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(_launcher(ring.count.data_ptr(), ring.data.data_ptr(), ring.capacity, mark_id,
+                        stream), 'trace_mark')
+
+
+def _write_plain(ring: _Ring, mark_id: int) -> None:
+    """The mark kernel's plain version, for the CPU."""
+    with _lock:
+        n = int(ring.count[0])
+        ring.data[n % ring.capacity, 0] = time.perf_counter_ns()
+        ring.data[n % ring.capacity, 1] = mark_id
+        ring.count[0] = n + 1
+
+
+def mark(name: str) -> None:
+    """Record the device's time here (see the module docstring)."""
+    if not _on:
+        return
+    call = getattr(_local, 'call', None)
+    if call is None:
+        return
+    device = _local.device
+    mark_id = next(_ids)
+    captured = getattr(_local, 'capture', None)
+    if captured is not None:
+        # a node of the graph under capture: it records on each replay
+        captured.append((mark_id, name))
+    else:
+        _log.append((mark_id, name, call, time.perf_counter(), device))
+    if device.type == 'cuda':
+        _launch(_ring(device), mark_id, device)
+    elif captured is None:
+        _write_plain(_ring(device), mark_id)
+
+
+class _Call:
+    __slots__ = ('name', 'device', 'outer')
+
+    def __init__(self, name, device):
+        device = torch.device(device)
+        if device.type == 'cuda' and device.index is None:
+            device = torch.device('cuda', torch.cuda.current_device())
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        self.outer = (getattr(_local, 'call', None), getattr(_local, 'device', None))
+        _local.call, _local.device = next(_calls), self.device
+        mark(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _local.call, _local.device = self.outer
+        return False
+
+
+def call(name: str, device):
+    """Context manager: a traced call on `device`, opened by the mark
+    `name`; the marks inside it belong to it."""
+    if not _on:
+        return _NULL
+    return _Call(name, device)
+
+
+@contextlib.contextmanager
+def capturing():
+    """The marks made inside the block, by the calling thread, go into
+    the list it yields as (mark id, name) and are not logged: a CUDA
+    graph capture runs nothing (_graph.Graphed)."""
+    outer = getattr(_local, 'capture', None)
+    made: list = []
+    _local.capture = made
+    try:
+        yield made
+    finally:
+        _local.capture = outer
+
+
+def replayed(captured, device: torch.device) -> None:
+    """Log the marks of a capture (`capturing`) for one replay on
+    `device`, in the calling thread's traced call or a call of its own."""
+    call_id = getattr(_local, 'call', None) or next(_calls)
+    now = time.perf_counter()
+    _log.extend((mark_id, name, call_id, now, device) for mark_id, name in captured)
+
+
+def marks() -> list[Mark]:
+    """The logged marks with the device's time of each, in the order of
+    the devices' clocks.  Reads each ring back after the work enqueued
+    on its device; a logged mark is matched to the newest records of its
+    id in the ring (a replay logs and writes the ids of its capture)."""
+    found: dict = {}
+    for device, ring in _rings.items():
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        n = int(ring.count[0])
+        slots = torch.arange(max(0, n - ring.capacity), n) % ring.capacity
+        rows = ring.data.cpu()[slots].tolist()
+        for t, mark_id in rows:
+            found.setdefault((device, mark_id), []).append(t)
+    logged: dict = {}
+    for mark_id, name, call_id, host, device in list(_log):
+        logged.setdefault((device, mark_id), []).append((name, call_id, host))
+    out = []
+    for key, entries in logged.items():
+        times = found.get(key, [])
+        for (name, call_id, host), t in zip(reversed(entries), reversed(times)):
+            out.append(Mark(name, call_id, host, key[0], t))
+    out.sort(key=lambda m: (str(m.device), m.ns))
+    return out
+
+
+# ---- counters ----
+
+def count(name: str, key: str | None = None) -> None:
+    """Add one to counter `name` (under `key` for a counter by key)."""
+    with _lock:
+        if key is None:
+            _counts[name] += 1
+        else:
+            _counts[name][key] = _counts[name].get(key, 0) + 1
+
+
+def counters() -> dict:
+    """Every counter, kernels.launches among them, as plain values."""
+    with _lock:
+        out = {'kernels.launches': dict(kernels.launches)}
+        out.update({k: dict(v) if isinstance(v, dict) else v for k, v in _counts.items()})
+    return out
+
+
+# ---- timers ----
 
 def _leaves(value):
     if isinstance(value, torch.Tensor):
@@ -46,7 +364,7 @@ def _fence(value):
 
 
 class StageTimer:
-    """Named stage timer with device fencing.
+    """Named stage timer with device fencing; each stage is also a span.
 
     >>> timer = StageTimer()
     >>> with timer.stage('demosaic') as st:
@@ -67,11 +385,12 @@ class StageTimer:
         if not self.enabled:
             yield self
             return
-        t0 = time.perf_counter()
-        yield self
-        if self._result is not None:
-            _fence(self._result)
-            self._result = None
+        with span(name):
+            t0 = time.perf_counter()
+            yield self
+            if self._result is not None:
+                _fence(self._result)
+                self._result = None
         self.timings.append((name, time.perf_counter() - t0))
 
     def record(self, value):
@@ -95,6 +414,7 @@ def benchmark_op(fn, x0, iters: int = 10, warmup: int = 2) -> float:
     card the chain is a CUDA graph: the first call runs it eagerly and
     captures it, each warm-up and the timed call are replays.  On the CPU
     the first call is one more eager warm-up."""
+    from .._graph import Graphed
 
     def run(x):
         for _ in range(iters):
@@ -115,7 +435,8 @@ def benchmark_op(fn, x0, iters: int = 10, warmup: int = 2) -> float:
 @contextlib.contextmanager
 def trace_to(log_dir: str):
     """torch.profiler trace of the block (CPU, and the card where there is
-    one), written to `log_dir`/trace.json (chrome://tracing, Perfetto)."""
+    one), written to `log_dir`/trace.json (chrome://tracing, Perfetto);
+    the tracer's spans show in it as ranges of their names."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -123,3 +444,8 @@ def trace_to(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+
+
+__all__ = ['CAPACITY', 'Mark', 'Span', 'StageTimer', 'benchmark_op', 'call', 'capturing', 'count',
+           'counters', 'disable', 'enable', 'mark', 'marks', 'replayed', 'reset', 'span', 'spans',
+           'trace_to', 'tracing']
