@@ -97,12 +97,15 @@ Phases (any failure raises and the script exits non-zero):
      frame; the peak device memory of one device-entropy encode; and no call
      in process_batch (of a batch on the card or on the host) or in
      encode_jpeg_async may make the host wait for the card (CUDA sync
-     debugging).  Then config 5 (benchmarks/baseline_configs.py:158-215):
+     debugging).  The entropy scan's kernel (csrc/jpeg_entropy.cu) on the
+     frame turned to 3000x4096 (the stream cell's shape): equal to its
+     plain version, 3 launches a call, both timed in turns beside the
+     bound.  Then config 5 (benchmarks/baseline_configs.py:158-215):
      StreamingExecutor(batch 2, quality 90, keep_images=False), a warm-up
      of 2 frames and 32 timed, once with device JPEG and once with 2 host
      workers, the EMA reset between: no errors, every result FF D8, equal
      bytes frame for frame, 34 launches of each of FULL's three kernels a
-     run; s/frame, frames/s, MB/frame, and FULL's process_batch ms/frame
+     run (and 102 of the scan kernel with device JPEG, 0 with host); s/frame, frames/s, MB/frame, and FULL's process_batch ms/frame
      alone in the same call.  Last, the card's busy time and idle share
      (torch.profiler) of the DCT stage, the device entropy, one FULL batch
      of 2 and 2 streamed frames in each mode.
@@ -1402,6 +1405,51 @@ def jpeg_graphs(frame, frame_cpu, blocks, ri, ref):
     return report
 
 
+def jpeg_entropy_case(frame):
+    """The scan kernel (csrc/jpeg_entropy.cu) at the stream cell's frame
+    shape: the 4096x3000 frame turned to 3000x4096, as rotate_270 leaves it,
+    4:2:2 q90 at the auto restart interval (a row of 188 MCUs).  Its words
+    and small readback must equal the plain version's on the card, with 3
+    launches a call; both timed by CUDA events in turns (plain, kernel,
+    kernel, plain) beside the bound: 2 bytes a coefficient in, the words
+    and readback out; ~40 integer operations a coefficient."""
+    from tpu_darktable_torch import kernels
+    from tpu_darktable_torch.kernels.jpeg_entropy import jpeg_entropy, jpeg_entropy_plain
+    from tpu_darktable_torch.ops import jpeg as jp
+
+    turned = frame.transpose(0, 1).contiguous()
+    blocks = jp._prepare_device_stage(turned, 90, 3, 1)[4]
+    ri = jp._resolve_restart_interval(None, turned.shape[1], 1, 3, blocks) or blocks[1].shape[0]
+    cap_words = -(-max(4096, ri * 4 * 40) // 4)
+    kernels.reset_launches()
+    words, small = jpeg_entropy(blocks, 1, ri, cap_words)
+    launches = kernels.launches['jpeg_entropy']
+    plain_words, plain_small = jpeg_entropy_plain(blocks, 1, ri, cap_words)
+    if launches != 3 or bool(small[-1]) or not torch.equal(small, plain_small) \
+            or not torch.equal(words, plain_words):
+        raise AssertionError(f'jpeg_entropy at {tuple(turned.shape)}: {launches} launches, '
+                             f'overflow {bool(small[-1])}, or it differs from its plain version')
+    ms = {}
+    for turn, fn, iters in (('plain 1', jpeg_entropy_plain, 3), ('kernel 1', jpeg_entropy, 50),
+                            ('kernel 2', jpeg_entropy, 50), ('plain 2', jpeg_entropy_plain, 3)):
+        ms[turn] = cuda_ms(lambda: fn(blocks, 1, ri, cap_words), iters=iters, warmup=1)
+    n_coef = sum(b.numel() for b in blocks)
+    n_bytes = 2 * n_coef + 4 * int(small[-2]) + 8 * small.numel()
+    bound_ms, bound_by = bound(n_bytes, 40 * n_coef)
+    report = dict(
+        name='jpeg_entropy', route='CUDA', source='csrc/jpeg_entropy.cu', replaces='none',
+        shape=list(turned.shape), restart_interval=ri, blocks=n_coef // 64,
+        stream_words=int(small[-2]), launches_a_call=launches,
+        ms=min(ms['kernel 1'], ms['kernel 2']), plain_ms=min(ms['plain 1'], ms['plain 2']),
+        turns=ms, bound_ms=bound_ms, bound_by=bound_by,
+        bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3, operations_ms=40 * n_coef / FP32_OPS_PER_S * 1e3)
+    log(f'jpeg_entropy {tuple(turned.shape)} 4:2:2 q90, restart {ri}: equal to its plain version '
+        f'({report["stream_words"]} words), {launches} launches a call; in turns ' +
+        ', '.join(f'{k} {v:.4f} ms' for k, v in ms.items()) +
+        f'; bound {bound_ms:.4f} ms ({bound_by})')
+    return report
+
+
 def phase_jpeg(dev, smi):
     """The JPEG encoder on one FULL frame, card against CPU and timed, then
     BASELINE config 5 through the streaming executor in both JPEG modes."""
@@ -1479,6 +1527,7 @@ def phase_jpeg(dev, smi):
             raise AssertionError(f'{name}: the host waits for the card at {report[name]}, so '
                                  'batch N+1 cannot be enqueued while batch N runs')
     report['graphed_stages'] = jpeg_graphs(frame, frame_cpu, blocks, ri, ref)
+    report['entropy_kernel'] = jpeg_entropy_case(frame)
 
     # (c) BASELINE config 5: FULL at 4096x3000, batch 2, quality 90, streamed
     n_frames, warm = 32, 2
@@ -1501,8 +1550,10 @@ def phase_jpeg(dev, smi):
         if bad or len(results) != n_frames:
             raise AssertionError(f'config 5 streaming failures: {bad} '
                                  f'{[r.error for r in results if r.error]}')
+        scans = 3 * (warm + n_frames) if device_jpeg else 0   # the scan kernel's 3 a frame
         for name, n in launches.items():
-            if n != (warm + n_frames if name in FULL_KERNELS else 0):
+            if n != (warm + n_frames if name in FULL_KERNELS else
+                     scans if name == 'jpeg_entropy' else 0):
                 raise AssertionError(f'config 5 launched {name} {n} times')
         mode = 'device_jpeg' if device_jpeg else 'host_jpeg_2_workers'
         executors[mode] = ex

@@ -27,11 +27,16 @@ from tpu_darktable_torch.kernels.bilateral_band import bilateral_band_plain
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused_plain
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
+from tpu_darktable_torch.kernels.jpeg_entropy import (CHUNK, blocks_per_mcu, jpeg_entropy_plain,
+                                                      table_entries)
 from tpu_darktable_torch.kernels.nlm import nlm_core_plain
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core_plain
 from tpu_darktable_torch.kernels.wiener_core import _windows, wiener_tile_core_plain
+from tpu_darktable_torch.native import jpeg_encode_baseline_native
+from tpu_darktable_torch.ops import jpeg as tjpeg
 from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
+from tpu_darktable_torch.ops.jpeg_entropy import entropy_encode_device_finalize
 from tpu_darktable_torch.ops.wiener import _gaussian_window
 
 torch.set_num_threads(1)
@@ -41,11 +46,14 @@ torch.set_num_threads(1)
 # the threads in index order, round after round, so a barrier holds and the
 # run is deterministic.  Dynamic shared memory starts as NaN in every block, so
 # a read of a value no thread wrote shows.  __syncwarp() yields like
-# __syncthreads(); __shfl_sync and __shfl_xor_sync pass a float through a
-# per-thread slot between two yields (full warps, width 32).
+# __syncthreads(); __shfl_sync, __shfl_xor_sync, __shfl_up_sync and
+# __ballot_sync pass a value of up to 8 bytes through a per-thread slot
+# between two yields (full warps, width 32), so every lane of a warp has to
+# reach them together, as the sources' warp-uniform loops do.
 EMU_HEADER = r"""#pragma once
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <limits>
 #include <vector>
 #include <algorithm>
@@ -83,13 +91,14 @@ static int emu_attribute_status = 0;
 extern "C" void emu_set_attribute_status(int status) { emu_attribute_status = status; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return emu_attribute_status; }
 inline int cudaGetLastError() { return 0; }
-// The card's nanosecond clock (%globaltimer), which a test sets, and the one
-// atomic the sources use: blocks and threads run one at a time here.
+// The card's nanosecond clock (%globaltimer), which a test sets, and the
+// atomics the sources use: blocks and threads run one at a time here.
 static unsigned long long emu_clock_ns = 0;
 extern "C" void emu_set_clock(unsigned long long ns) { emu_clock_ns = ns; }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   const unsigned long long old = *p; *p = old + v; return old;
 }
+inline unsigned atomicOr(unsigned* p, unsigned v) { const unsigned old = *p; *p = old | v; return old; }
 
 struct EmuCfg { dim3 grid, block; size_t smem; };
 inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t smem = 0, cudaStream_t = nullptr) { return {g, b, smem}; }
@@ -104,18 +113,37 @@ inline void __syncthreads() { swapcontext(&emu_fibres[emu_cur].ctx, &emu_main); 
 // Every live fibre of the block runs once a round, so a yield is a barrier for
 // the threads that reach it together: a warp's, or the block's.
 inline void __syncwarp(unsigned = 0xffffffffu) { __syncthreads(); }
-static float emu_lane_val[1024];
-inline float __shfl_sync(unsigned, float v, int src_lane) {
-  const unsigned me = emu_cur;
-  emu_lane_val[me] = v;
+static unsigned long long emu_lane_val[1024];
+// v of this thread for the value of thread `src` of the block.
+template <class T> inline T emu_exchange(T v, unsigned src) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "a shuffle moves up to 8 bytes");
+  std::memcpy(&emu_lane_val[emu_cur], &v, sizeof(T));
   __syncwarp();
-  const float got = emu_lane_val[(me & ~31u) + ((unsigned)src_lane & 31u)];
+  T got;
+  std::memcpy(&got, &emu_lane_val[src], sizeof(T));
   __syncwarp();
   return got;
 }
-inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
+template <class T> inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_exchange(v, (emu_cur & ~31u) + ((unsigned)src_lane & 31u));
+}
+template <class T> inline T __shfl_xor_sync(unsigned m, T v, int lane_mask) {
   return __shfl_sync(m, v, (int)((emu_cur & 31u) ^ (unsigned)lane_mask));
 }
+template <class T> inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  return emu_exchange(v, (emu_cur & 31u) >= delta ? emu_cur - delta : emu_cur);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned first = emu_cur & ~31u;
+  emu_lane_val[emu_cur] = pred != 0;
+  __syncwarp();
+  unsigned bits = 0;
+  for (unsigned l = 0; l < 32; ++l) bits |= (unsigned)emu_lane_val[first + l] << l;
+  __syncwarp();
+  return bits;
+}
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
 static void emu_entry() {
   (*emu_body)();
   emu_fibres[emu_cur].done = true;
@@ -448,3 +476,157 @@ def test_wiener_core_source_on_host(emu_lib, rng, k, g, n_ty, n_tx, n_sig, offse
     assert np.abs(out - exact).max() <= 2e-8 * scale
     plain = wiener_tile_core_plain(torch.from_numpy(x), torch.from_numpy(sig2), wf, wi, k=k).numpy()
     assert np.abs(out - plain).max() <= 2e-6 * scale
+
+
+def _emu_jpeg_entropy(lib, comp_blocks, subsampling, ri, cap_words):
+    """csrc/jpeg_entropy.cu's three launches on the host: (words, small),
+    every output and scratch buffer first filled with a value no launch
+    writes."""
+    bpm = blocks_per_mcu(len(comp_blocks), subsampling)
+    n_mcu = comp_blocks[1].shape[0] if bpm == 4 else comp_blocks[0].shape[0]
+    n_iv = -(-n_mcu // ri)
+    n_chunks = n_iv * -(-(ri * bpm) // CHUNK)
+    words = np.full(n_iv * cap_words, 0x55555555, np.int32)
+    small = np.full(n_iv + 2, -7, np.int64)
+    bits = np.full(n_chunks * CHUNK, -7, np.int32)
+    scratch = np.full(n_chunks + 2 * n_iv, -7, np.int64)
+    blocks = [np.ascontiguousarray(b, np.int16) for b in comp_blocks]
+    ptrs = [_p(b) for b in blocks] + [None] * (3 - len(blocks))
+    fn = lib.jpeg_entropy_launch
+    fn.argtypes = [_V] * 4 + [ctypes.c_longlong] * 2 + [_I, ctypes.c_longlong] + [_V] * 7
+    tables = table_entries()
+    assert fn(*ptrs, _p(tables), n_mcu, ri, bpm, cap_words, _p(bits), _p(scratch),
+              _p(scratch[n_chunks:]), _p(scratch[n_chunks + n_iv:]), _p(small), _p(words),
+              None) == 0
+    return words, small
+
+
+def _huffman_tables():
+    H = tjpeg._HUFF
+    return tuple((H[('dc', t)][0], H[('dc', t)][1], H[('ac', t)][0], H[('ac', t)][1])
+                 for t in (0, 1))
+
+
+def _check_scan(lib, comp_blocks, subsampling, restart_interval, cap_bytes=None):
+    """The kernel against the plain version (the stream's words and the
+    small tensor, bit for bit) and, through finalize, against the native
+    C++ scan (the body's bytes); returns the kernel's small tensor."""
+    bpm = blocks_per_mcu(len(comp_blocks), subsampling)
+    n_mcu = comp_blocks[1].shape[0] if bpm == 4 else comp_blocks[0].shape[0]
+    ri = restart_interval if restart_interval > 0 else n_mcu
+    cap_words = -(-(cap_bytes or max(4096, ri * bpm * 40)) // 4)
+    words, small = _emu_jpeg_entropy(lib, comp_blocks, subsampling, ri, cap_words)
+    plain_words, plain_small = jpeg_entropy_plain(
+        [torch.from_numpy(np.asarray(b, np.int16)) for b in comp_blocks], subsampling, ri, cap_words)
+    np.testing.assert_array_equal(small, plain_small.numpy())
+    if small[-1]:   # overflow: the stream is not defined, the host encodes
+        return small
+    np.testing.assert_array_equal(words, plain_words.numpy())
+    body = entropy_encode_device_finalize({'stream': torch.from_numpy(words),
+                                           'small': torch.from_numpy(small),
+                                           'n_iv': -(-n_mcu // ri), 'event': None})
+    native = jpeg_encode_baseline_native([np.asarray(b, np.int16) for b in comp_blocks],
+                                         subsampling, _huffman_tables(),
+                                         restart_interval=restart_interval)
+    np.testing.assert_array_equal(body, native)
+    return small
+
+
+def _scene_blocks(rng, h, w, subsampling, quality=90):
+    """Quantized blocks of a smooth image with noise, from the port's DCT
+    stage on the CPU."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 90 * np.sin(xx / 23) * np.cos(yy / 17), 128 + 70 * np.cos(xx / 11),
+                    128 + 50 * np.sin((xx + yy) / 31)], -1)
+    img = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+    qy, qc = tjpeg.quality_to_tables(quality)
+    return [b.numpy() for b in tjpeg._jpeg_device_stage(
+        torch.from_numpy(img), torch.from_numpy(qy.astype(np.float32)),
+        torch.from_numpy(qc.astype(np.float32)), subsampling=subsampling, swap_br=False)]
+
+
+@pytest.mark.parametrize('restart_interval', [0, 5, 16])
+@pytest.mark.parametrize('subsampling', [0, 1, 2])
+def test_jpeg_entropy_source_on_host(emu_lib, rng, subsampling, restart_interval):
+    """A 56x120 scene (4:2:2: 56 MCUs, 224 blocks; 4:4:4 and GRAY: 105
+    MCUs): intervals of several chunks (restart interval 0: one interval of
+    224 or 315 blocks), intervals shorter than a chunk, and a last interval
+    short of MCUs (56 and 105 are no multiples of 5 or 16)."""
+    comp_blocks = _scene_blocks(rng, 56, 120, subsampling)
+    assert not _check_scan(emu_lib['jpeg_entropy'], comp_blocks, subsampling, restart_interval)[-1]
+
+
+def _extreme_blocks():
+    """DC differences of +-2047, runs of 16, 32 and 48 zeros (one, two and
+    three folded ZRLs), a nonzero 63rd coefficient (no EOB), an all-zero AC,
+    and AC values of +-1023 (size 10)."""
+    b = np.zeros((10, 64), np.int16)
+    b[0, 0] = 1023                        # diff 1023 from the interval's 0
+    b[1, 0] = -1024                       # diff -2047
+    b[1, 63] = 3                          # no EOB
+    b[2, 0] = 1023                        # diff 2047; all-zero AC: EOB at once
+    b[3, 1], b[3, 18] = 1, -1             # run 16: one ZRL
+    b[4, 1], b[4, 34] = 2, -7             # run 32: two ZRLs
+    b[5, 1], b[5, 50] = 1, 1023           # run 48: three ZRLs, size 10
+    b[6, 2] = -1023
+    b[7, 63] = -1                         # a lone last coefficient after a run of 62
+    b[8, 1:] = np.where(np.arange(63) % 2, 1023, -1023)   # every AC coefficient, the longest items
+    b[9, 0], b[9, 15], b[9, 63] = -1024, 5, -5             # run 47 into the last position
+    return b
+
+
+@pytest.mark.parametrize('restart_interval', [0, 3])
+@pytest.mark.parametrize('subsampling', [0, 1, 2])
+def test_jpeg_entropy_source_extreme_on_host(emu_lib, subsampling, restart_interval):
+    b = _extreme_blocks()
+    if subsampling == 2:
+        comp_blocks = [b]
+    elif subsampling == 1:   # 10 MCUs: Y takes the blocks twice, Cb and Cr once, in other orders
+        comp_blocks = [np.concatenate([b, b[::-1]]), b[::-1].copy(), np.roll(b, 3, axis=0)]
+    else:
+        comp_blocks = [b, b[::-1].copy(), np.roll(b, 3, axis=0)]
+    assert not _check_scan(emu_lib['jpeg_entropy'], comp_blocks, subsampling, restart_interval)[-1]
+
+
+@pytest.mark.parametrize('restart_interval', [0, 4])
+def test_jpeg_entropy_source_dense_on_host(emu_lib, rng, restart_interval):
+    """Dense random coefficients (a quarter nonzero, |v| < 80) over 90 MCUs
+    of 4:4:4: every chunk full of long items."""
+    mk = lambda n: (rng.integers(-80, 80, (n, 64)) * (rng.random((n, 64)) < 0.25)).astype(np.int16)
+    comp_blocks = [mk(90), mk(90), mk(90)]
+    assert not _check_scan(emu_lib['jpeg_entropy'], comp_blocks, 0, restart_interval,
+                           cap_bytes=1 << 16)[-1]
+
+
+@pytest.mark.parametrize('subsampling,restart_interval,cap_bytes', [
+    (1, 4, 8), (2, 0, 64), (0, 5, 100)])
+def test_jpeg_entropy_source_overflow_on_host(emu_lib, rng, subsampling, restart_interval,
+                                              cap_bytes):
+    """An interval over its capacity: the overflow flag, each interval's
+    bytes and the word count as the plain version reports them."""
+    comp_blocks = _scene_blocks(rng, 56, 120, subsampling)
+    small = _check_scan(emu_lib['jpeg_entropy'], comp_blocks, subsampling, restart_interval,
+                        cap_bytes=cap_bytes)
+    assert small[-1] == 1
+
+
+@pytest.mark.parametrize('prev,dc,ac', [
+    (-1024, 1024, 0), (1024, -1024, 0), (0, 0, 1024), (0, 0, -1024),
+    (-1024, 1023, 1023)])   # the largest baseline values: no overflow
+def test_jpeg_entropy_source_flags_out_of_range(emu_lib, prev, dc, ac):
+    """A DC difference over 11 bits or an AC value over 10 is no baseline
+    coefficient (the DCT stage never makes one): the kernel reports an
+    overflow, so the host encodes the frame."""
+    b = np.zeros((6, 64), np.int16)
+    b[2, 0], b[3, 0], b[4, 7] = prev, dc, ac
+    words, small = _emu_jpeg_entropy(emu_lib['jpeg_entropy'], [b], 2, 6, 1024)
+    assert small[-1] == (abs(dc - prev) > 2047 or abs(ac) > 1023)
+
+
+def test_jpeg_entropy_launcher_refuses_bad_arguments(emu_lib):
+    """bpm 2, no MCUs or a restart interval of 0: cudaErrorInvalidValue, and
+    nothing launched."""
+    fn = emu_lib['jpeg_entropy'].jpeg_entropy_launch
+    fn.argtypes = [_V] * 4 + [ctypes.c_longlong] * 2 + [_I, ctypes.c_longlong] + [_V] * 7
+    for n_mcu, ri, bpm in ((4, 1, 2), (0, 1, 1), (4, 0, 1)):
+        assert fn(*[None] * 4, n_mcu, ri, bpm, 16, *[None] * 7) == 1

@@ -3,6 +3,13 @@ native C++ scan (the oracle of tests/test_jpeg_entropy.py), the async split
 against the synchronous encode, the overflow fallback against the host
 path, and the bitstring concatenation against a Python model of bit strings
 (words are 32-bit values carried in int64, masked after every left shift).
+
+On a card (`-m cuda`; the module imports JAX only inside the one test that
+compares with it, so it runs where JAX is not installed:
+`python -m pytest tests/test_torch_jpeg_entropy.py -m cuda --noconftest`):
+the hand kernel of csrc/jpeg_entropy.cu at the benchmark cells' frame
+shapes against the native scan and the plain version run on the card, and
+the JPEG graphs replaying it with their launch counts.
 """
 
 import numpy as np
@@ -10,11 +17,12 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
-from tpu_darktable.ops import jpeg_entropy as jje
-
+from tpu_darktable_torch import kernels
+from tpu_darktable_torch.kernels.jpeg_entropy import jpeg_entropy, jpeg_entropy_plain
 from tpu_darktable_torch.native import get_lib, jpeg_encode_baseline_native
 from tpu_darktable_torch.ops import jpeg as T
 from tpu_darktable_torch.ops import jpeg_entropy as te
+from tpu_darktable_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -61,6 +69,8 @@ def test_device_entropy_matches_native(rng, subsampling, restart_interval):
     assert got is not None
     np.testing.assert_array_equal(got, ref)
     # and JAX's device scan of the same blocks
+    from tpu_darktable.ops import jpeg_entropy as jje
+
     np.testing.assert_array_equal(
         got, jje.entropy_encode_device([b.numpy() for b in comp_blocks], subsampling,
                                        restart_interval))
@@ -204,3 +214,67 @@ def test_concat_pairs_matches_bit_strings(bit_strings, out_w):
         cap = min(len(want), out_w * 32)
         assert _to_bits(row, cap) == want[:cap]
         assert _to_bits(row, out_w * 32)[cap:] == '0' * (out_w * 32 - cap)
+
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device; chip_smoke.py runs the scan kernel on the card')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w,ri', [(4096, 3000, 188), (2472, 2062, 129)])
+def test_kernel_scan_at_cell_shapes_on_card(card, h, w, ri):
+    """The benchmark cells' frames after their rotation (artichoke 3000x4096,
+    the rig's 2062x2472), 4:2:2 q90 at the auto restart interval: the
+    kernel's stream and small readback equal the plain version's run on the
+    card, word for word, and its JFIF bytes the native host scan's."""
+    img = torch.from_numpy(_image(np.random.default_rng(h), h, w)).to(card)
+    qy, qc = T.quality_to_tables(90)
+    blocks = T._jpeg_device_stage(img, torch.from_numpy(qy.astype(np.float32)).to(card),
+                                  torch.from_numpy(qc.astype(np.float32)).to(card),
+                                  subsampling=1, swap_br=False)
+    assert T._resolve_restart_interval(None, w, 1, 3, blocks) == ri
+    cap_words = ri * 4 * 40 // 4
+    kernels.reset_launches()
+    words, small = jpeg_entropy(blocks, 1, ri, cap_words)
+    assert kernels.launches['jpeg_entropy'] == 3
+    plain_words, plain_small = jpeg_entropy_plain(blocks, 1, ri, cap_words)
+    assert torch.equal(small, plain_small) and not small[-1]
+    assert torch.equal(words, plain_words)
+    host = T.encode_jpeg(img, 90, entropy='host')
+    np.testing.assert_array_equal(T.encode_jpeg(img, 90, entropy='device'), host)
+    body = te.entropy_encode_device_finalize({'stream': words.cpu(), 'small': small.cpu(),
+                                              'n_iv': small.numel() - 2, 'event': None})
+    np.testing.assert_array_equal(body, _native_body([b.cpu() for b in blocks], 1, ri))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w', [(480, 640), (1080, 1920)])
+def test_jpeg_graphs_replay_the_kernel_on_card(card, h, w):
+    """A Jpeg's scan graph replays the kernel: its first encode runs it
+    eagerly (3 launches counted) and captures it, each replay adds the
+    capture's 3 (`add_launches`); the bytes equal the host scan's, through
+    encode and encode_async, and no encode falls back to the host at q90
+    (at 1080x1920 one interval a row of MCUs, at 480x640 one a frame)."""
+    from tpu_darktable_torch.jpeg import Jpeg
+
+    img = torch.from_numpy(_image(np.random.default_rng(w), h, w)).to(card)
+    host = T.encode_jpeg(img, 90, entropy='host')
+    jpeg = Jpeg()
+    fallbacks = timing.counters().get('jpeg.host_fallbacks', 0)
+    kernels.reset_launches()
+    np.testing.assert_array_equal(jpeg.encode(img, 90), host)
+    assert kernels.launches['jpeg_entropy'] == 3
+    assert len(jpeg._stages.scan._captured) == 1
+    for n in range(2, 5):
+        np.testing.assert_array_equal(jpeg.encode(img, 90), host)
+        assert kernels.launches['jpeg_entropy'] == 3 * n
+    pending = [jpeg.encode_async(img, 90) for _ in range(2)]
+    for p in pending:
+        np.testing.assert_array_equal(p.result(), host)
+    assert kernels.launches['jpeg_entropy'] == 3 * 6
+    assert len(jpeg._stages.scan._captured) == 1
+    assert timing.counters().get('jpeg.host_fallbacks', 0) == fallbacks

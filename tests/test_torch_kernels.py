@@ -21,6 +21,7 @@ from tpu_darktable_torch.kernels.bilateral_band import bilateral_band, bilateral
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz
+from tpu_darktable_torch.kernels.jpeg_entropy import jpeg_entropy
 from tpu_darktable_torch.kernels.nlm import nlm_core
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core
@@ -146,13 +147,14 @@ def test_cpu_runs_plain_versions_and_counts_nothing(rng):
     wf = np.full(16, 0.25, np.float32)
     wiener_tile_core(torch.stack([x, x]), torch.tensor([0.01]), wf, wf, k=16)
     bilateral_fused(x, s=2, gz=6, sigma_r=0.2)
+    jpeg_entropy([torch.zeros((4, 64), dtype=torch.int16)], 2, 2, 16)
     # and through the stage functions the pipeline calls
     tbil.bilateral_process(x, 2.0, 0.2, 0.4)
     twiener.wiener_denoise(torch.from_numpy(rng.random((96, 128)).astype(np.float32)), 0.05, 16, 4,
                            use_separable=False)
     assert kernels.launches == {'rcd_interior': 0, 'color_smooth_diffs': 0, 'bilateral_band': 0,
                                 'grid_blur_xyz': 0, 'wavelet_core': 0, 'nlm_core': 0,
-                                'wiener_tile_core': 0, 'bilateral_fused': 0}
+                                'wiener_tile_core': 0, 'bilateral_fused': 0, 'jpeg_entropy': 0}
 
 
 @pytest.mark.cuda

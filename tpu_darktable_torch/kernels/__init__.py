@@ -49,6 +49,7 @@ launches: dict[str, int] = _Launches({
     'nlm_core': 0,
     'wiener_tile_core': 0,
     'bilateral_fused': 0,
+    'jpeg_entropy': 0,
 })
 
 

@@ -32,6 +32,7 @@ SOURCES = {
     'nlm_core': 'nlm.cu',
     'wiener_tile_core': 'wiener_core.cu',
     'bilateral_fused': 'bilateral_fused.cu',
+    'jpeg_entropy': 'jpeg_entropy.cu',
     # the tracer's device mark (utils/timing.py), not a kernel of the pipeline
     'trace_mark': 'mark.cu',
 }

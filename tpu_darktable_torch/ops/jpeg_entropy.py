@@ -33,10 +33,13 @@ until they exceed the per-interval cap; the final per-interval bit lengths
 are exact, so any overflow of the cap is detected and reported for a
 lossless host-path fallback.
 
-The scan (`_entropy_pack_device`, which JAX jits) runs through a
-`_graph.Graphed` that its caller owns (ops/jpeg.py `_Stages`): its tables
-are device constants made once per device, and nothing in it waits for
-the host, so on a card it replays as one CUDA graph.
+The scan (`_scan`, the counterpart of JAX's jitted `_entropy_pack_device`)
+runs through a `_graph.Graphed` that its caller owns (ops/jpeg.py
+`_Stages`).  It calls kernels/jpeg_entropy.py: on a card the hand kernel of
+csrc/jpeg_entropy.cu (three launches), on the CPU `_entropy_pack_device`
+below, its plain version; both give the stream as int32 words.  Their
+tables are device constants made once per device, and nothing in either
+waits for the host, so on a card the scan replays as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import constant_on
+from ..kernels.jpeg_entropy import blocks_per_mcu, jpeg_entropy
 from ..utils import timing
 
 # Worst-case bits for a single slot item (Annex-K tables: up to three folded
@@ -396,13 +400,11 @@ def _entropy_pack_device(comp_blocks, subsampling: int,
 
 
 def _scan(subsampling: int, restart_interval: int, cap_words: int, *comp_blocks):
-    """_entropy_pack_device as its Graphed runs it (each block tensor an
-    argument of its own, so the capture key holds its shape): the stream
-    words, and the per-interval byte counts, the word count and the
-    overflow flag in one int64 tensor, the small readback."""
-    stream, iv_bytes, total_words, overflow = _entropy_pack_device(
-        comp_blocks, subsampling, restart_interval, cap_words)
-    return stream, torch.cat([iv_bytes, total_words[None], overflow[None].to(torch.int64)])
+    """The scan as its Graphed runs it (each block tensor an argument of its
+    own, so the capture key holds its shape): the stream's int32 words, and
+    the per-interval byte counts, the word count and the overflow flag in
+    one int64 tensor, the small readback (kernels/jpeg_entropy.py)."""
+    return jpeg_entropy(comp_blocks, subsampling, restart_interval, cap_words)
 
 
 def _stuff_bytes(seg: np.ndarray) -> np.ndarray:
@@ -444,13 +446,10 @@ def _dispatch(scan, comp_blocks, subsampling: int, restart_interval: int,
     """entropy_encode_device_dispatch with the scan run by `scan` (a
     Graphed of `_scan`, or `_scan` itself to run it eagerly)."""
     comp_blocks = tuple(torch.as_tensor(cb) for cb in comp_blocks)
-    n_mcu = (comp_blocks[1].shape[0]
-             if (subsampling == 1 and len(comp_blocks) == 3)
-             else comp_blocks[0].shape[0])
+    bpm = blocks_per_mcu(len(comp_blocks), subsampling)
+    n_mcu = comp_blocks[1].shape[0] if bpm == 4 else comp_blocks[0].shape[0]
     ri = int(restart_interval) if restart_interval > 0 else n_mcu
     n_iv = -(-n_mcu // ri)
-    bpm = 4 if (subsampling == 1 and len(comp_blocks) == 3) else \
-        (3 if len(comp_blocks) == 3 else 1)
     if cap_bytes_per_interval is None:
         # ~6x the long-run typical rate at quality <= 95; overflow falls
         # back losslessly, so this is a performance knob, not a correctness
@@ -501,7 +500,7 @@ def entropy_encode_device_finalize(pending):
     if overflow:
         return None
     words = _read_stream(pending, used)            # the only bulk transfer
-    raw = np.frombuffer(words.astype('>u4').tobytes(), dtype=np.uint8)
+    raw = np.frombuffer(words.astype('>i4').tobytes(), dtype=np.uint8)
 
     parts = []
     off_words = 0
