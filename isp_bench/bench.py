@@ -5,7 +5,9 @@ size (the command itself refuses to run without a card)."""
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import os
 import random
 import sys
 from dataclasses import dataclass
@@ -14,7 +16,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import check, drive, readers, scene, spec, trace
+from . import check, drive, readers, scene, spec, trace, tracer
 from .stats import percentile
 
 # top-level module names that must not be loaded when the window closes
@@ -58,10 +60,39 @@ def _sync(devices):
             torch.cuda.synchronize(d)
 
 
+def _program_tracer():
+    """The program's tracer (tpu_darktable_torch.utils.timing), or None
+    where the program has none."""
+    try:
+        from tpu_darktable_torch.utils import timing
+    except ImportError:
+        return None
+    # before the tracer, the module held the timers alone
+    return timing if hasattr(timing, 'enable') else None
+
+
+@contextlib.contextmanager
+def _tracing(on: bool):
+    """The program's tracer on for the block, where `on` and the program
+    has a tracer: from before the set-up, so the graphs are captured with
+    their marks; its records are forgotten first."""
+    timing = _program_tracer() if on else None
+    if timing is None:
+        yield
+        return
+    timing.reset()
+    timing.enable()
+    try:
+        yield
+    finally:
+        timing.disable()
+
+
 def _context(rec, tr, cfg, work) -> SimpleNamespace:
     """What the per-layer readers read: the window's calls (with the card's
     ms of each, and of its frames' JPEG stages) and frames, the trace of
-    the slice after the window, the kernels' work."""
+    the slice after the window, the kernels' work, and the program's
+    tracer records (`marks`, `spans`: None unless the tracer is on)."""
     t0, t1 = rec.window
     calls = [c for c in rec.calls if c.in_window]
     for c in calls:
@@ -73,8 +104,29 @@ def _context(rec, tr, cfg, work) -> SimpleNamespace:
                               done=rec.done[i] if i < len(rec.done) else None)
               for i in range(len(rec.take)) if t0 <= rec.take[i] < t1]
     w, h = cfg['camera']['image_size']
+    timing = _program_tracer()
+    on = timing is not None and timing.tracing()
     return SimpleNamespace(calls=calls, frames=frames, window=(t0, t1), trace=tr, work=work,
-                           pixels=w * h, chips=cfg['chips'])
+                           pixels=w * h, chips=cfg['chips'], marks=timing.marks() if on else None,
+                           spans=timing.spans() if on else None)
+
+
+def _report_tracer(ctx) -> None:
+    """The tracer's tables of a traced run, on standard error."""
+    err = sys.stderr
+    for kind, table in (tracer.mark_table(ctx) or {}).items():
+        print(f'isp_bench: {kind} marks, card ms a frame from the mark before: '
+              + ', '.join(f'{k} {v:.3f}' for k, v in table.items() if v is not None), file=err)
+    print('isp_bench: spans in the window (count, host ms a frame, mean ms): '
+          + '; '.join(f'{k} {n} {a:.3f} {m:.3f}'
+                      for k, (n, a, m) in (tracer.span_table(ctx) or {}).items()), file=err)
+    for label, ops in (tracer.stage_ops(ctx) or {}).items():
+        print(f'isp_bench: top device ops to {label}, ms a frame: '
+              + '; '.join(f'{name[:70]} {ms:.3f}' for name, ms in ops), file=err)
+    parts = tracer.tail_parts(ctx)
+    if parts is not None:
+        print(f'isp_bench: lag + flush + hold + results {parts[0]:.1f} ms against the slowest '
+              f'frame {parts[1]:.1f} ms (medians over the window batches)', file=err)
 
 
 @dataclass
@@ -161,10 +213,16 @@ def prepare(cell_name: str, seed: int, *, t_process=None, devices=None, camera_o
     return s
 
 
-def run(cell_name: str, seed: int, seconds: float, traced: bool, *, control=False,
-        bench=None, **kw) -> dict:
+def run(cell_name: str, seed: int, seconds: float, traced: bool, **kw) -> dict:
     """The run's result (the dict run.py prints); with `control`, also the
-    control's numbers under 'control'.  Keywords go to prepare."""
+    control's numbers under 'control'.  Keywords go to prepare.  A traced
+    run has the program's tracer on throughout."""
+    with _tracing(traced):
+        return _run(cell_name, seed, seconds, traced, **kw)
+
+
+def _run(cell_name: str, seed: int, seconds: float, traced: bool, *, control=False,
+         bench=None, **kw) -> dict:
     bench = spec.benchmark() if bench is None else bench
     s = prepare(cell_name, seed, bench=bench, **kw)
     traffic, devices, rec, cfg = s.traffic, s.devices, s.rec, s.cfg
@@ -172,7 +230,7 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, *, control=Fals
 
     tslice, trace_path = None, None
     if traced:
-        trace_path = spec.OUT / f'trace.{cell_name}.json'
+        trace_path = spec.OUT / f'trace.{cell_name}.{os.getpid()}.json'
         tslice = drive.Slice(drive.SETTLE_S, traffic['trace_slice_s'], trace.profile_to(trace_path))
     s.go(seconds=seconds, rate=traffic.get('captures_per_s'), tslice=tslice)
     _sync(devices)
@@ -220,6 +278,7 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, *, control=Fals
         for m in spec.metrics_of(cell_name, 'end_to_end', bench):
             metrics[m['name']] = {'value': values[m['name'].split('.')[0]], 'unit': m['unit']}
     else:
+        _report_tracer(ctx)
         for m in spec.metrics_of(cell_name, 'per_layer', bench):
             v = spec.metric_reader(m['name'])(ctx)
             if v is not None:

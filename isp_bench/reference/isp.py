@@ -7,7 +7,13 @@ measured program's batched program runs its stages.
     metrics EMA over the batch's stride-8 samples
     tonemap -> uint8
 
-The stages are the frozen plain copies in `frozen/`.  With
+The stages are the frozen plain copies in `frozen/`.  A setting the
+built-in stages do not cover (BUILT_IN) is covered by a stage file in
+`routes/`, found by the setting's name: `routes/<setting>.<value>.py` for
+a string value (`tone_mapping.reinhard.py`), `routes/<setting>.py` for any
+other (`enable_laplacian.py`).  It defines one or more of STAGES, each
+taking the ReferenceISP first; a setting no file covers raises
+NotImplementedError when the ReferenceISP is made.  With
 `lower_precision` every stage's output is rounded to bfloat16 before the
 next stage reads it: that is the control, the step below the float32 that
 the configuration states, which the comparison must reject.
@@ -15,7 +21,9 @@ the configuration states, which the comparison must reject.
 
 from __future__ import annotations
 
+import importlib.util
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
@@ -40,6 +48,44 @@ DEFAULTS = {
     'enable_denoise': True, 'denoise': 0.075, 'denoise_overlap': 4, 'denoise_f16': True,
     'tone_mapping': 'reinhard', 'resize_width': 0,
 }
+ROUTES = Path(__file__).resolve().parent / 'routes'
+# the values of each setting that the built-in stages cover
+BUILT_IN = {'debayer': ('rcd',), 'enable_laplacian': (False,), 'resize_width': (0,),
+            'tone_mapping': ('aces', 'adaptive_aces')}
+# what a stage file may define: demosaic(isp, bayer) -> rgb in RCD's place;
+# local_contrast(isp, rgb) -> rgb after bilateral; tonemap(isp, rgb, metrics)
+# -> uint8 in ACES's place
+STAGES = ('demosaic', 'local_contrast', 'tonemap')
+
+
+def _stages_of(path: Path) -> dict:
+    """The STAGES that the stage file at `path` defines, loaded as a module
+    of this package's routes/ (its relative imports reach frozen/)."""
+    name = f"{__package__}.routes.{path.stem.replace('.', '_')}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    found = {k: getattr(module, k) for k in STAGES if callable(getattr(module, k, None))}
+    if not found:
+        raise NotImplementedError(f'{path.name} defines none of {STAGES}')
+    return found
+
+
+def routes_for(settings: dict) -> dict:
+    """Stage name -> function, from the stage files of every setting the
+    built-in stages do not cover; raises NotImplementedError for a setting
+    no file covers."""
+    stages = {}
+    for setting, values in BUILT_IN.items():
+        value = settings[setting]
+        if value in values:
+            continue
+        path = ROUTES / (f'{setting}.{value}.py' if isinstance(value, str) else f'{setting}.py')
+        if not path.is_file():
+            raise NotImplementedError(f'{setting} = {value!r}: the reference has no stage '
+                                      f'file {path.relative_to(ROUTES.parent)}')
+        stages.update(_stages_of(path))
+    return stages
 
 
 @dataclass(frozen=True)
@@ -77,12 +123,9 @@ class Camera:
 class ReferenceISP:
     def __init__(self, camera: Camera, device, lower_precision: bool = False):
         s = camera.settings
-        if s['debayer'] != 'rcd' or s['enable_laplacian'] or s['resize_width']:
-            raise NotImplementedError('the reference covers RCD, no Laplacian, no resize')
-        if s['tone_mapping'] not in ('aces', 'adaptive_aces'):
-            raise NotImplementedError(f"tone mapping {s['tone_mapping']}")
         if s['enable_denoise'] and not s['denoise_f16']:
             raise NotImplementedError('Wiener: the separable float16 route only')
+        self.stages = routes_for(s)
         self.camera = camera
         self.s = s
         self.device = torch.device(device)
@@ -105,7 +148,11 @@ class ReferenceISP:
         bayer = _packed.decode12_float(rows.reshape(c.height, (c.width * 3) // 2), ids_format=c.ids)
         if self.wb is not None:
             bayer = _wb.apply_white_balance(bayer, self.wb, c.pattern)
-        rgb = self._q(_rcd.rcd_demosaic(self._q(bayer), c.pattern, strict_alias=True))
+        demosaic = self.stages.get('demosaic')
+        if demosaic is None:
+            rgb = self._q(_rcd.rcd_demosaic(self._q(bayer), c.pattern, strict_alias=True))
+        else:
+            rgb = self._q(demosaic(self, self._q(bayer)))
         if self.s['postprocess']:
             rgb = _postprocess.postprocess(
                 rgb, c.pattern, color_smoothing_passes=self.s['color_smoothing_passes'],
@@ -133,9 +180,13 @@ class ReferenceISP:
             out = _bilateral.bilateral_process(lum, s['bil_sigma_spatial'],
                                                s['bil_sigma_luminance'], s['bilateral'])
             rgb = self._q(_color.lab_modify_luminance(lab, out))
+        if 'local_contrast' in self.stages:
+            rgb = self._q(self.stages['local_contrast'](self, rgb))
         return rgb
 
     def tonemap(self, rgb: torch.Tensor, metrics: torch.Tensor) -> torch.Tensor:
+        if 'tonemap' in self.stages:
+            return self.stages['tonemap'](self, rgb, metrics)
         s = self.s
         params = _tonemap.TonemapParameters(s['tone_gamma'], s['tone_intensity'],
                                             s['light_adapt'], s['vibrance'])
@@ -170,4 +221,4 @@ class ReferenceISP:
         return transform(u8, self.camera.transform_of(name)).contiguous()
 
 
-__all__ = ['Camera', 'ReferenceISP', 'lerp']
+__all__ = ['BUILT_IN', 'Camera', 'ROUTES', 'ReferenceISP', 'STAGES', 'lerp', 'routes_for']

@@ -4,7 +4,9 @@ checkout, and under isp_bench/ one file for each configuration
 `captures_per_s` is an open loop at that rate, one without a closed loop),
 per-layer metric (metrics/<name>.py, a `read(ctx)` that returns a number or
 None), hand kernel's work (kernels/<symbol>.json) and cell's limits of the
-comparison (limits/<cell>.json, else limits/default.json).  A new cell,
+comparison (limits/<cell>.json, else limits/default.json).  The reference
+finds its own stage files, one for each setting its built-in stages do not
+cover (reference/routes/, see reference/isp.py).  A new cell,
 configuration or metric is a new file and a new entry; nothing here names
 one."""
 

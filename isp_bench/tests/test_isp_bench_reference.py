@@ -43,9 +43,18 @@ def test_frames_depend_on_the_seed_alone():
     assert np.array_equal(a, b) and not np.array_equal(a, c)
 
 
-@pytest.mark.parametrize('name', ['artichoke', 'beetroot'])
-def test_reference_follows_the_package_cpu_path(name):
-    cam = _camera(name)
+# the local-Laplacian camera: artichoke with upstream's documented clarity
+LAPLACIAN = {'enable_laplacian': True, 'lap_clarity': 0.3}
+
+
+def _laplacian_camera():
+    cam = _camera('artichoke')
+    return dict(cam, image_processing=dict(cam['image_processing'], **LAPLACIAN))
+
+
+def _follow(cam):
+    """The reference against ImageProcessor's CPU path over three batches:
+    bounds equal, metrics within 1e-6, uint8 within one count."""
     pool = scene.frame_pool(cam, 4, 11, 'cpu')
     proc = ImageProcessor.from_camera_settings(CameraSettings.from_dict(cam), device='cpu')
     ref = ReferenceISP(Camera.from_dict(cam), 'cpu')
@@ -63,6 +72,68 @@ def test_reference_follows_the_package_cpu_path(name):
         assert (proc.metrics - m).abs().max() <= 1e-6
         for j in range(len(frames)):
             assert (out[j].int() - u8[j].int()).abs().max() <= 1
+
+
+@pytest.mark.parametrize('name', ['artichoke', 'beetroot'])
+def test_reference_follows_the_package_cpu_path(name):
+    _follow(_camera(name))
+
+
+def test_laplacian_route_follows_the_package_cpu_path():
+    cam = _laplacian_camera()
+    assert 'local_contrast' in ReferenceISP(Camera.from_dict(cam), 'cpu').stages
+    _follow(cam)
+
+
+def test_laplacian_control_is_not_correct():
+    """A run of the stream cell with the Laplacian camera is correct, and
+    the bfloat16 control in its place is not."""
+    from isp_bench import bench, check, spec
+
+    over = {'image_size': SIZE, 'image_processing': _laplacian_camera()['image_processing']}
+    r = bench.run('artichoke.stream_jpeg', 2**31 + 41, 1.5, False, devices=['cpu'],
+                  camera_override=over, control=True)
+    assert r['correct'] is True, r['checks']
+    ok, rows = check.verdict(r['control'], spec.limits('artichoke.stream_jpeg'))
+    assert ok is False, rows
+
+
+@pytest.mark.parametrize('setting,value', [('debayer', 'ppg'), ('tone_mapping', 'filmic'),
+                                           ('resize_width', 1024)])
+def test_uncovered_setting_raises_when_the_reference_is_made(setting, value):
+    cam = _camera('artichoke')
+    cam = dict(cam, image_processing=dict(cam['image_processing'], **{setting: value}))
+    with pytest.raises(NotImplementedError, match=setting):
+        ReferenceISP(Camera.from_dict(cam), 'cpu')
+
+
+def test_stage_file_is_picked_up_by_its_setting(tmp_path, monkeypatch):
+    """A stage file dropped into the routes directory covers its setting,
+    with no edit to isp.py or check.py: here a PPG camera, demosaicked by a
+    file that runs the frozen RCD and counts its calls."""
+    from isp_bench.reference import isp
+
+    (tmp_path / 'debayer.ppg.py').write_text(
+        'from ..frozen.ops import rcd\n'
+        'calls = []\n\n\n'
+        'def demosaic(isp, bayer):\n'
+        '    calls.append(bayer.shape)\n'
+        '    return rcd.rcd_demosaic(bayer, isp.camera.pattern, strict_alias=True)\n')
+    (tmp_path / 'tone_mapping.filmic.py').write_text('X = 1\n')
+    monkeypatch.setattr(isp, 'ROUTES', tmp_path)
+    base = _camera('artichoke')
+    cam = dict(base, image_processing=dict(base['image_processing'], debayer='ppg'))
+    ref = ReferenceISP(Camera.from_dict(cam), 'cpu')
+    demosaic = ref.stages['demosaic']
+    frame = torch.from_numpy(scene.frame_pool(cam, 1, 5, 'cpu')[0])
+    rgb = ref.front(frame)
+    assert demosaic.__globals__['calls'] == [(SIZE[1], SIZE[0])]
+    # the same frame through the built-in RCD of the plain camera
+    assert torch.equal(rgb, ReferenceISP(Camera.from_dict(base), 'cpu').front(frame))
+    # a file that defines no stage covers nothing
+    cam = dict(base, image_processing=dict(base['image_processing'], tone_mapping='filmic'))
+    with pytest.raises(NotImplementedError, match='defines none'):
+        ReferenceISP(Camera.from_dict(cam), 'cpu')
 
 
 def test_control_is_far_from_the_reference():

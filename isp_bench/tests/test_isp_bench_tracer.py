@@ -1,18 +1,28 @@
-"""The readers of the program's tracer (isp_bench/tracer.py) on hand-made
-records, chip_trace.py's traced run of each cell on the CPU at a small
-size, and the benchmark's own runs, which leave the tracer off."""
+"""The readers of the program's tracer (isp_bench/tracer.py and the metric
+files that use it) on hand-made records, chip_trace.py's traced run of
+each cell on the CPU at a small size, and the benchmark's own runs, whose
+traced run turns the tracer on and hands its records to the readers."""
 
 from types import SimpleNamespace
 
 import pytest
 
-from isp_bench import bench, tracer
+from isp_bench import bench, spec, tracer
 from isp_bench.trace import Activity, Trace
 from tpu_darktable_torch.utils import timing
 
 SMALL = {'image_size': [128, 96]}
 SEED = 2**31 + 77
 CELLS = ['artichoke.stream_jpeg', 'beetroot.rig_rate', 'artichoke.batch_device']
+# the per-layer metrics that read the tracer's records
+TRACER_METRICS = ['demosaic_card_ms.stream', 'postprocess_card_ms.stream',
+                  'denoise_card_ms.stream', 'bilateral_card_ms.stream', 'tonemap_card_ms.stream',
+                  'isp_input_ms.stream', 'jpeg_entropy_card_ms.stream', 'drain_hold_ms.rig',
+                  'jpeg_result_ms.rig']
+
+
+def _read(name, ctx):
+    return spec.metric_reader(name)(ctx)
 
 
 def _m(name, call, host, ms, device='cuda:0'):
@@ -67,12 +77,12 @@ def test_isp_stages_per_frame_from_the_marks():
     ctx = _ctx()
     calls, frames = tracer.isp_calls(ctx)
     assert len(calls) == 2 and frames == 4
-    assert tracer.isp_stage_ms(ctx, 'demosaic') == pytest.approx(8.0)
-    assert tracer.isp_stage_ms(ctx, 'postprocess') == pytest.approx(3.0)
-    assert tracer.isp_stage_ms(ctx, 'denoise') == pytest.approx(20.0)
-    assert tracer.isp_stage_ms(ctx, 'bilateral') == pytest.approx(7.0)
+    assert _read('demosaic_card_ms.stream', ctx) == pytest.approx(8.0)
+    assert _read('postprocess_card_ms.stream', ctx) == pytest.approx(3.0)
+    assert _read('denoise_card_ms.stream', ctx) == pytest.approx(20.0)
+    assert _read('bilateral_card_ms.stream', ctx) == pytest.approx(7.0)
     # from the last frame's bilateral mark: the sampling, the metrics EMA, the tonemap
-    assert tracer.isp_stage_ms(ctx, 'tonemap') == pytest.approx(11.0 / 2)
+    assert _read('tonemap_card_ms.stream', ctx) == pytest.approx(11.0 / 2)
 
 
 def test_a_stage_between_its_marks_skips_marks_inside_it():
@@ -86,13 +96,19 @@ def test_laplacian_closes_the_back_when_it_runs():
     ms = [_m('bilateral', 1, 0, 1), _m('laplacian', 1, 0, 5), _m('metrics', 1, 0, 6),
           _m('tonemap', 1, 0, 9)]
     assert tracer.stage_ms([ms], ('bilateral', 'laplacian'), 'tonemap') == pytest.approx(4.0)
+    # a stage's reader is made from its marks, as a metric file makes it
+    marks = [_m(name, 1, 0.5, at) for name, at in (('begin', 0), ('bilateral', 1), ('laplacian', 5),
+                                                    ('metrics', 6), ('tonemap', 9))]
+    ctx = SimpleNamespace(calls=[SimpleNamespace(t0=0, t1=1, n=1)], marks=marks)
+    assert tracer.isp_stage(('bilateral',), 'laplacian')(ctx) == pytest.approx(4.0)
+    assert _read('tonemap_card_ms.stream', ctx) == pytest.approx(4.0)
 
 
 def test_jpeg_entropy_of_the_window_calls_frames():
     ctx = _ctx()
     calls, frames = tracer.jpeg_calls(ctx)
     assert len(calls) == 4 and frames == 4            # not the third call's encodes
-    assert tracer.jpeg_entropy_card_ms(ctx) == pytest.approx(60.0)
+    assert _read('jpeg_entropy_card_ms.stream', ctx) == pytest.approx(60.0)
 
 
 def test_mark_table_attributes_each_gap_to_the_mark_that_closes_it():
@@ -106,18 +122,21 @@ def test_mark_table_attributes_each_gap_to_the_mark_that_closes_it():
 
 def test_host_spans_per_frame_and_the_hold():
     ctx = _ctx()
-    assert tracer.isp_input_ms(ctx) == pytest.approx((3 + 5) / 4)
-    assert tracer.drain_hold_ms(ctx) == pytest.approx(1100.0)
+    assert _read('isp_input_ms.stream', ctx) == pytest.approx((3 + 5) / 4)
+    assert _read('drain_hold_ms.rig', ctx) == pytest.approx(1100.0)
     # the results inside the window batches' drains, in the drains' thread
-    assert tracer.jpeg_result_ms(ctx) == pytest.approx((20 + 10 + 40 + 20) / 4)
+    assert _read('jpeg_result_ms.rig', ctx) == pytest.approx((20 + 10 + 40 + 20) / 4)
     lag_flush_hold = [10 + 300 + 1100, 10 + 300 + 1100]
     sums = [lag_flush_hold[0] + 30, lag_flush_hold[1] + 60]
     assert tracer.tail_parts(ctx) == pytest.approx(((sums[0] + sums[1]) / 2, (1570 + 1620) / 2))
 
 
 def test_readers_are_silent_without_the_tracer():
+    for ctx in (SimpleNamespace(calls=_ctx().calls, frames=[], trace=None, window=(0, 1)),
+                SimpleNamespace(calls=_ctx().calls, frames=[], trace=None, window=(0, 1),
+                                marks=None, spans=None)):
+        assert all(_read(name, ctx) is None for name in TRACER_METRICS)
     ctx = SimpleNamespace(calls=_ctx().calls, frames=[], trace=None, window=(0, 1))
-    assert all(read(ctx) is None for read in tracer.READINGS.values())
     assert tracer.mark_table(ctx) is None and tracer.tail_parts(ctx) is None
     assert tracer.stage_ops(ctx) is None
 
@@ -175,15 +194,63 @@ def test_traced_run_of_each_cell_reads_the_tracer(cell):
     assert not timing.tracing()
 
 
+def test_the_metric_files_are_the_tracer_readings():
+    """Each tracer metric of BENCHMARK.json is one file in metrics/ whose
+    reader the tracer made, in the cells of PERF.md's table; READINGS
+    (what chip_trace.py reads) is worked out from those files."""
+    entries = {m['name']: m for m in spec.benchmark()['per_layer']}
+    assert set(TRACER_METRICS) <= set(entries)
+    assert set(tracer.READINGS) == set(TRACER_METRICS)
+    for name in TRACER_METRICS:
+        m = entries[name]
+        assert m['source'] == 'program_span' and m['unit'] == 'ms' and m['better'] == 'lower'
+        assert (spec.HERE / 'metrics' / f'{name}.py').is_file()
+        if name.endswith('.rig'):
+            want = ['beetroot.rig_rate']
+        elif name.startswith('jpeg_'):
+            want = ['artichoke.stream_jpeg']
+        else:
+            want = ['artichoke.stream_jpeg', 'artichoke.batch_device']
+        assert m['workloads'] == want, name
+
+
 @pytest.mark.parametrize('traced', [False, True], ids=['untraced', 'traced'])
 def test_the_benchmark_leaves_the_tracer_off(traced):
-    """isp_bench/run.py's runs, traced or not, take the program's path with
-    the tracer off: no span or mark is recorded."""
+    """isp_bench/run.py's untraced runs take the program's path with the
+    tracer off: no span or mark is recorded.  A traced run turns it on for
+    its set-up, window and slice, and off again before it returns."""
     timing.reset()
     r = bench.run('artichoke.batch_device', SEED, 1.0, traced, devices=['cpu'],
                   camera_override=SMALL)
     assert r['correct'] is True
-    assert not timing.tracing() and timing.spans() == [] and timing.marks() == []
+    assert not timing.tracing()
+    if traced:
+        assert timing.spans() and timing.marks()
+    else:
+        assert timing.spans() == [] and timing.marks() == []
+
+
+@pytest.mark.parametrize('cell', CELLS)
+def test_traced_run_hands_the_tracer_records_to_the_context(cell, monkeypatch):
+    """A traced bench.run hands the tracer's marks and spans to the
+    readers' context, and its result line holds each tracer metric of the
+    cell; an untraced run's context has neither."""
+    seen = []
+    real = bench._context
+
+    def context(*args):
+        seen.append(real(*args))
+        return seen[-1]
+    monkeypatch.setattr(bench, '_context', context)
+    r = bench.run(cell, SEED, 1.5, True, devices=['cpu'], camera_override=SMALL)
+    assert r['correct'] is True
+    ctx = seen[-1]
+    assert ctx.marks and ctx.spans
+    assert {m.name for m in ctx.marks} >= {'begin', 'decode', 'demosaic', 'tonemap'}
+    want = [m['name'] for m in spec.metrics_of(cell, 'per_layer') if m['name'] in TRACER_METRICS]
+    assert want and all(r['metrics'][name]['value'] > 0 for name in want), r['metrics']
+    bench.run(cell, SEED, 1.0, False, devices=['cpu'], camera_override=SMALL)
+    assert seen[-1].marks is None and seen[-1].spans is None
 
 
 def test_chip_trace_needs_a_card(monkeypatch, capsys):

@@ -2,18 +2,18 @@
 the card time of each stage from the device marks of each call, and the
 host spans of the entry and of the streaming executor.
 
-Each reader takes a run's context (bench._context) with two fields more:
-`marks` and `spans`, the tracer's records of the run (each mark: name,
-call, host, ns; each span: name, thread, start, end, attrs, parent; host
-times on the harness's clock).  Without them, or where it finds nothing,
-a reader returns None.  A stage's card time is the time from the last
-mark of its start names to its end mark, in each traced call of the
-program; a "per frame" reading is summed over the window's calls and
-divided by their frames, as readers.isp_card_ms is.
-
-The harness does not turn the tracer on: a traced run would have to call
-`timing.enable()` before its set-up and hand `timing.marks()` and
-`timing.spans()` to its context; chip_trace.py does both around bench.run.
+A traced run (bench.run with `traced`) turns the tracer on before its
+set-up, so that every graph is captured with its marks, and its context
+(bench._context) carries `marks` and `spans`, the tracer's records of the
+run (each mark: name, call, host, ns; each span: name, thread, start,
+end, attrs, parent; host times on the harness's clock); both are None in
+an untraced run or where the program has no tracer.  Without them, or
+where it finds nothing, a reader returns None.  A stage's card time is
+the time from the last mark of its opening names to its closing mark, in
+each traced call of the program; a "per frame" reading is summed over
+the window's calls and divided by their frames, as readers.isp_card_ms
+is.  A metric file names a stage's marks itself (`isp_stage`,
+`jpeg_stage`), so a stage's metric is one file in metrics/.
 """
 
 from __future__ import annotations
@@ -21,14 +21,6 @@ from __future__ import annotations
 from .stats import median
 from .trace import Trace
 
-# metric stem -> (the marks that open the stage, the mark that closes it)
-ISP_STAGES = {
-    'demosaic': (('decode',), 'demosaic'),
-    'postprocess': (('demosaic',), 'postprocess'),
-    'denoise': (('normalize',), 'denoise'),
-    'bilateral': (('denoise',), 'bilateral'),
-    'tonemap': (('bilateral', 'laplacian'), 'tonemap'),
-}
 MARK_KERNEL = 'trace_mark_write'
 
 
@@ -103,14 +95,19 @@ def _per_frame(found, opens, closes):
     return total / frames if total is not None and frames else None
 
 
-def isp_stage_ms(ctx, stage: str):
-    """Card ms a frame of one stage of the batched program (ISP_STAGES)."""
-    return _per_frame(isp_calls(ctx), *ISP_STAGES[stage])
+def isp_stage(opens: tuple, closes: str):
+    """The reader of one stage of the batched program: card ms a frame from
+    the last mark named in `opens` to the `closes` mark."""
+    def read(ctx):
+        return _per_frame(isp_calls(ctx), opens, closes)
+    return read
 
 
-def jpeg_entropy_card_ms(ctx):
-    """Card ms a frame of the device entropy scan: `jpeg.dct` to `jpeg.scan`."""
-    return _per_frame(jpeg_calls(ctx), ('jpeg.dct',), 'jpeg.scan')
+def jpeg_stage(opens: tuple, closes: str):
+    """The reader of one stage of the window's JPEG encodes, likewise."""
+    def read(ctx):
+        return _per_frame(jpeg_calls(ctx), opens, closes)
+    return read
 
 
 def mark_table(ctx) -> dict | None:
@@ -279,19 +276,17 @@ def stage_ops(ctx, device: int = 0, top: int = 3) -> dict | None:
                     sorted(v.items(), key=lambda kv: -kv[1])[:top]] for label, v in ops.items()}
 
 
-# the per-layer readings the tracer gives, by the names a benchmark would report them under
-READINGS = {
-    'demosaic_card_ms.stream': lambda ctx: isp_stage_ms(ctx, 'demosaic'),
-    'postprocess_card_ms.stream': lambda ctx: isp_stage_ms(ctx, 'postprocess'),
-    'denoise_card_ms.stream': lambda ctx: isp_stage_ms(ctx, 'denoise'),
-    'bilateral_card_ms.stream': lambda ctx: isp_stage_ms(ctx, 'bilateral'),
-    'tonemap_card_ms.stream': lambda ctx: isp_stage_ms(ctx, 'tonemap'),
-    'isp_input_ms.stream': isp_input_ms,
-    'jpeg_entropy_card_ms.stream': jpeg_entropy_card_ms,
-    'drain_hold_ms.rig': drain_hold_ms,
-    'jpeg_result_ms.rig': jpeg_result_ms,
-}
+def __getattr__(name):
+    """READINGS, for chip_trace.py: metric name -> reader, for every
+    per-layer metric of BENCHMARK.json whose reader this module made."""
+    if name != 'READINGS':
+        raise AttributeError(name)
+    from . import spec
 
-__all__ = ['ISP_STAGES', 'MARK_KERNEL', 'READINGS', 'drain_hold_ms', 'isp_calls', 'isp_input_ms',
-           'isp_stage_ms', 'jpeg_calls', 'jpeg_entropy_card_ms', 'jpeg_result_ms', 'mark_table',
-           'span_table', 'stage_ms', 'stage_ops', 'tail_parts', 'window_batches']
+    found = {m['name']: spec.metric_reader(m['name']) for m in spec.benchmark()['per_layer']}
+    return {k: v for k, v in found.items() if getattr(v, '__module__', None) == __name__}
+
+
+__all__ = ['MARK_KERNEL', 'drain_hold_ms', 'isp_calls', 'isp_input_ms', 'isp_stage', 'jpeg_calls',
+           'jpeg_result_ms', 'jpeg_stage', 'mark_table', 'span_table', 'stage_ms', 'stage_ops',
+           'tail_parts', 'window_batches']
