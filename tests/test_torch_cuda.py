@@ -1096,3 +1096,61 @@ def test_traced_processor_on_a_card_that_is_not_the_current_one(dev):
     assert sum(c[0] == 'begin' for c in calls.values()) == 3
     assert sum(c == ['jpeg.begin', 'jpeg.dct', 'jpeg.scan'] for c in calls.values()) == 6
     assert {m.device for m in marks} == {card}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w,h', [(512, 384), (1024, 768), (4096, 3000)])
+def test_laplacian_camera_card_against_the_cpu_path(dev, monkeypatch, w, h):
+    """FULL with the local Laplacian, the benchmark's `artichoke_lap`
+    settings, on a batch of 2 of its scenes: the card's uint8 output against
+    the port's CPU path, with the bilateral stage on its kernel and on its
+    plain version.  The kernel rounds as the CPU's plain chain does (bit for
+    bit on the plane the program hands it); PyTorch's CUDA division by a
+    Python scalar multiplies by the reciprocal, so the plain chain on the
+    card departs from both.  The card-vs-CPU gap is then the same with
+    either bilateral route (the card's plain stages', through the float16
+    pyramids: 4, 8, 12 counts at these sizes), and the kernel route sits
+    0-3 counts from the card's plain route, which the benchmark's reference
+    follows.  Counts are printed for the record."""
+    import tpu_darktable_torch.ops.bilateral as ops_bilateral
+    from isp_bench import scene, spec
+    from tpu_darktable_torch.pipeline.camera_settings import CameraSettings
+    from tpu_darktable_torch.pipeline.image_processor import ImageProcessor
+
+    cam = dict(spec.config('artichoke_lap')['camera'], image_size=[w, h])
+    cs = CameraSettings.from_dict(cam)
+    frames = torch.from_numpy(scene.frame_pool(cam, 2, 2**31 + 1234, 'cpu'))
+    planes = []
+
+    def kernel_route(lum, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            planes.append((lum.clone(), kw))
+        return bilateral_band(lum, **kw)
+
+    def run(device, route):
+        monkeypatch.setattr(ops_bilateral, 'bilateral_band', route)
+        proc = ImageProcessor.from_camera_settings(cs, device=device)
+        return proc.process_batch(frames.to(device)).cpu().to(torch.int16)
+
+    card = run(dev, kernel_route)
+    card_plain = run(dev, bilateral_band_plain)
+    cpu = run('cpu', bilateral_band_plain)
+
+    def gap(a, b):
+        d = (a - b).abs()
+        return int(d.max()), float((d > 0).float().mean())
+
+    to_cpu, plain_to_cpu, routes = gap(card, cpu), gap(card_plain, cpu), gap(card, card_plain)
+    print(f'laplacian camera {w}x{h}: card vs cpu {to_cpu}, card (plain bilateral) vs cpu '
+          f'{plain_to_cpu}, kernel vs plain route on the card {routes}')
+
+    lum, kw = planes[0]
+    assert torch.equal(bilateral_band(lum, **kw).cpu(), bilateral_band_plain(lum.cpu(), **kw))
+    sr = kw['sigma_r']
+    recip = torch.tensor(1.0) / torch.tensor(sr, dtype=torch.float32)
+    assert torch.equal((lum / sr).cpu(), lum.cpu() * recip)
+    assert not torch.equal((lum / sr).cpu(), lum.cpu() / sr)
+
+    assert abs(to_cpu[0] - plain_to_cpu[0]) <= 1
+    assert to_cpu[0] <= 12 and to_cpu[1] < 1e-3
+    assert routes[0] <= 3 and routes[1] < 1e-4

@@ -174,7 +174,7 @@ def test_marks_follow_the_enabled_stages(tracer):
     s = dataclasses.replace(FULL, enable_denoise=False, enable_laplacian=True, lap_clarity=0.3)
     _processor(s).process_batch(_frames(64, 48, 1))
     assert [m.name for m in timing.marks()] == program_marks(1, ['normalize', 'bilateral',
-                                                                 'laplacian'])
+                                                                 'lap.pyramids', 'laplacian'])
 
 
 def test_the_sharded_stages_outside_a_call_are_unmarked(tracer):

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import device_cache, scalar_on, to_device
+from ..utils import timing
 
 _F32 = torch.float32
 MAX_LEVELS = 30
@@ -180,6 +181,9 @@ def local_laplacian(mono, params: LaplacianParams = LaplacianParams(),
             pyr.append(_gauss_reduce(pyr[l - 1], *dims[l], storage_dtype))
         processed.append(pyr)
     del base
+    # from the stage's opening mark to here: the seven pyramids; from here
+    # to its closing mark, the assembly
+    timing.mark('lap.pyramids')
 
     # coarse-to-fine assembly; each level's inputs are dropped once used
     output = padded[n_levels - 1]

@@ -46,9 +46,9 @@ spans `isp.input`, `graph.replay`, `graph.capture`, `stream.stack`,
 `stream.flush`, `stream.jpeg_dispatch`, `stream.drain`, `jpeg.result`,
 `jpeg.wait` and StageTimer's stages; marks `begin`, `decode`, `demosaic`,
 `rcd.interior`, `postprocess`, `bounds`, `normalize`, `denoise`,
-`bilateral`, `laplacian`, `metrics`, `tonemap` (the batched program) and
-`jpeg.begin`, `jpeg.dct`, `jpeg.scan` (a JPEG encode); counters
-`graph.captures` (by owner) and `jpeg.host_fallbacks`.
+`bilateral`, `lap.pyramids`, `laplacian`, `metrics`, `tonemap` (the
+batched program) and `jpeg.begin`, `jpeg.dct`, `jpeg.scan` (a JPEG
+encode); counters `graph.captures` (by owner) and `jpeg.host_fallbacks`.
 """
 
 from __future__ import annotations
