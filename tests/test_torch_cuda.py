@@ -1030,6 +1030,55 @@ def test_tracing_leaves_the_outputs_bit_identical(dev, camera, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('keep_images', [True, False], ids=['images', 'JPEG only'])
+def test_rig_drains_beside_a_paced_feed_on_card(dev, keep_images):
+    """The rig at 1024x768, two captures of 12 and a partial one of 5,
+    through the streaming executor with device JPEG, each run from a fresh
+    processor: fed at once; paced by 1 s before each capture, so that each
+    capture is drained before the next one's flush (`stream.early_drains`
+    2); and paced by 20 ms, less than a capture's card
+    time, so that the drainer's readbacks overlap the next flush and the
+    partial batch's first call and its capture.  The paced runs' JFIF
+    bytes and images equal the unpaced run's, bit for bit."""
+    import time
+
+    from tpu_darktable_torch.pipeline.image_processor import ImageProcessor
+    from tpu_darktable_torch.pipeline.streaming import StreamingExecutor
+    from tpu_darktable_torch.utils import timing
+
+    cs = _camera('beetroot', 1024, 768)
+    frames = _stream_frames(cs, 2 * 12 + 5, seed=44)
+
+    def run(pace):
+        def feed():
+            for i, f in enumerate(frames):
+                if i % 12 == 0:
+                    time.sleep(pace)
+                yield f
+
+        timing.reset()
+        proc = ImageProcessor.from_camera_settings(cs, device=dev)
+        ex = StreamingExecutor(proc, batch_size=12, jpeg_quality=90, keep_images=keep_images,
+                               device_jpeg=True)
+        results = ex.run(feed())
+        return results, timing.counters()['stream.early_drains']
+
+    at_once, _ = run(0.0)
+    for pace, want in ((1.0, 2), (0.02, None)):
+        paced, early = run(pace)
+        if want is not None:
+            assert early == want, pace
+        assert [r.name for r in paced] == [r.name for r in at_once] == [n for n, _ in frames]
+        for a, b in zip(at_once, paced):
+            assert a.error is None and b.error is None, (a.error, b.error)
+            assert a.jpeg[:2] == b'\xff\xd8' and a.jpeg == b.jpeg, (pace, a.name)
+            if keep_images:
+                assert np.array_equal(a.image, b.image), (pace, a.name)
+            else:
+                assert a.image is None and b.image is None
+
+
+@pytest.mark.cuda
 def test_marks_sum_to_the_events_span_of_the_calls(dev):
     """FULL at 4096x3000, batches of 2 on the card, replayed: the card time
     from each call's first mark to its last, summed over four calls, is

@@ -5,6 +5,7 @@ replay writes its marks), counters, the switch and the capture key."""
 
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -307,9 +308,41 @@ def test_streaming_spans_and_jpeg_marks(tracer):
     assert {s.parent for s in spans if s.name in ('stream.stack', 'isp.input')} == {'stream.flush'}
     flush = {s.attrs['seq']: s for s in spans if s.name == 'stream.flush'}
     drain = {s.attrs['seq']: s for s in spans if s.name == 'stream.drain'}
-    assert flush[1].end <= drain[0].start       # a batch drains once the next is flushed
+    # each batch drains after its own flush, in feed order, on the drainer's
+    # thread, with its frames' results inside it; flushes on the caller's
+    assert all(flush[k].end <= drain[k].start for k in (0, 1))
+    assert drain[0].end <= drain[1].start
+    assert {s.thread for s in flush.values()} == {threading.get_ident()}
+    (drainer,) = {s.thread for s in drain.values()}
+    assert drainer != threading.get_ident()
+    results_in = [[s for s in spans if s.name == 'jpeg.result' and s.thread == drainer
+                   and drain[k].start <= s.start and s.end <= drain[k].end] for k in (0, 1)]
+    assert [len(r) for r in results_in] == [2, 2]
     got = timing.marks()
     jpeg_calls = sorted({m.call for m in got if m.name.startswith('jpeg.')})
     assert len(jpeg_calls) == 4
     for c in jpeg_calls:
         assert [m.name for m in got if m.call == c] == ['jpeg.begin', 'jpeg.dct', 'jpeg.scan']
+
+
+@pytest.mark.parametrize('pace,early', [(0.0, 0), (0.5, 2)], ids=['unpaced', 'paced'])
+def test_streaming_counts_early_drains(untraced, pace, early):
+    """`stream.early_drains` counts the batches whose results had all
+    reached the caller when the next batch's flush began, tracer off.  A
+    slow on_result stands in for the card's wait: fed at once, the next
+    flush always begins first; with the feed waiting before each batch,
+    every batch but the last is back before the next one's flush."""
+    proc = _processor(w=64, h=48)
+    ex = StreamingExecutor(proc, batch_size=2, jpeg_quality=90, keep_images=False,
+                           device_jpeg=True)
+    frames = [(f'f{i}', f.numpy()) for i, f in enumerate(_frames(64, 48, 6))]
+
+    def feed():
+        for i, f in enumerate(frames):
+            if i % 2 == 0:
+                time.sleep(pace)
+            yield f
+
+    results = ex.run(feed(), on_result=lambda r: time.sleep(0.1))
+    assert [r.error for r in results] == [None] * 6
+    assert timing.counters()['stream.early_drains'] == early

@@ -74,8 +74,11 @@ pool run between them, and two callers of one graph must not share its
 static buffers.  So each wrapper takes its pool's lock around the lookup,
 the first call and its capture, and a replay's copy-in, replay and clone;
 and one capture runs at a time in the process (`_capture_lock`), on its
-device's side stream.  The callers enqueue on the legacy default stream,
-so the card runs their replays in the order the locks let them through.
+device's side stream.  The executor's drainer thread holds `_capture_lock`
+around each readback of a batch: the readback's copy runs on a stream
+from PyTorch's pool, which may be the capture's side stream.  The callers
+enqueue on the legacy default stream, so the card runs their replays in
+the order the locks let them through.
 """
 
 from __future__ import annotations

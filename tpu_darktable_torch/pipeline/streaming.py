@@ -20,10 +20,26 @@ cross to the host.  Host-JPEG mode reads each batch's frames back and
 encodes them in worker threads with the host entropy scan (the native
 packer releases the GIL).
 
+A drainer thread drains the flushed batches in feed order, each as soon
+as the card has finished it: it blocks on the batch's events (or its
+readback) with the interpreter lock released, so it waits beside the
+caller's thread, which may sit in the feed until the next frame is due.
+`on_result` runs on the drainer, in feed order.  After flushing batch N
+the caller waits until batch N-1 is drained before it takes the next
+frame, so at most two batches' outputs are alive.  In a closed loop the
+caller blocks there while the card finishes batch N-1, and each flush
+starts before the batch ahead of it is drained; in an open loop batch N
+is handed back while the caller waits for the next capture (counter
+`stream.early_drains`: batches drained before the next flush began).
+The drainer holds _graph's capture lock around each readback, so no
+readback overlaps a CUDA graph capture on the caller's thread (a new
+batch shape's first call).
+
 Spans (utils/timing.py), each batch numbered in feed order (`seq`):
 `stream.flush` (the batch's `stream.stack`, its process_batch and, in
-device-JPEG mode, its `stream.jpeg_dispatch`) and `stream.drain`, which
-starts once the next batch is flushed (or the feed has ended).
+device-JPEG mode, its `stream.jpeg_dispatch`) on the caller's thread, and
+`stream.drain` on the drainer's, which starts once the batch is flushed
+and the batch before it drained.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from .. import _graph
 from ..utils import timing
 
 
@@ -92,7 +109,9 @@ class StreamingExecutor:
             on_result: Callable[[StreamResult], None] | None = None):
         """Process (name, raw_bytes_array) pairs; returns results in
         completion order.  Device work for batch i+1 overlaps the JPEG
-        readback or encoding of batch i."""
+        readback or encoding of batch i.  `on_result` is called on the
+        drainer thread in feed order (host-JPEG mode: on the caller's
+        thread once the feed has ended); what it raises comes out of run."""
         results: list[StreamResult] = []
         out_q: queue.Queue = queue.Queue()
         jpeg_q: queue.Queue = queue.Queue(maxsize=self.jpeg_workers * 4)
@@ -121,7 +140,7 @@ class StreamingExecutor:
         workers = []
         if self._jpeg is not None and not use_device_jpeg:
             workers = [
-                threading.Thread(target=_jpeg_worker, daemon=True)
+                threading.Thread(target=_jpeg_worker, name='stream.jpeg', daemon=True)
                 for _ in range(self.jpeg_workers)
             ]
             for t in workers:
@@ -131,7 +150,12 @@ class StreamingExecutor:
         flushed = 0
         batch_names: list[str] = []
         batch_bytes: list = []
-        inflight: list[tuple[int, list[str], object]] = []
+        # the drainer's queue of flushed (seq, names, payload), None to stop
+        to_drain: queue.Queue = queue.Queue()
+        drained = threading.Condition()
+        # under `drained`: the newest batch drained, whether the drainer has
+        # stopped, and what stopped it
+        drained_seq, stopped, error = -1, False, None
 
         def _resolve_transform(name):
             from .transform import ImageTransform
@@ -170,11 +194,6 @@ class StreamingExecutor:
                     pend.append((name, None, None, e))
             return pend
 
-        def _drain_device(batch):
-            seq, names, payload = batch
-            with timing.span('stream.drain', seq=seq):
-                _drain(names, payload)
-
         def _drain(names, payload):
             nonlocal pending
             if use_device_jpeg:
@@ -185,19 +204,21 @@ class StreamingExecutor:
                     try:
                         if err is not None:
                             raise err
-                        r = StreamResult(
-                            name=name,
-                            image=img_dev.cpu().numpy()
-                            if self.keep_images else None,
-                            jpeg=handle.result().tobytes(),
-                        )
+                        with _graph._capture_lock:
+                            r = StreamResult(
+                                name=name,
+                                image=img_dev.cpu().numpy()
+                                if self.keep_images else None,
+                                jpeg=handle.result().tobytes(),
+                            )
                     except Exception as e:  # a frame's failure is its result
                         r = StreamResult(name=name, error=e)
                     results.append(r)
                     if on_result:
                         on_result(r)
                 return
-            host = payload.cpu().numpy()  # waits for the batch
+            with _graph._capture_lock:
+                host = payload.cpu().numpy()  # waits for the batch
             for i, name in enumerate(names):
                 img = np.ascontiguousarray(_host_transform(host[i], name))
                 if self._jpeg is not None:
@@ -209,11 +230,41 @@ class StreamingExecutor:
                     if on_result:
                         on_result(r)
 
+        def _drainer():
+            """Drain the flushed batches in feed order until told to stop."""
+            nonlocal drained_seq, stopped, error
+            try:
+                while (batch := to_drain.get()) is not None:
+                    seq, names, payload = batch
+                    with timing.span('stream.drain', seq=seq):
+                        _drain(names, payload)
+                    # the batch's outputs go before the caller may flush another
+                    del batch, names, payload
+                    with drained:
+                        drained_seq = seq
+                        drained.notify_all()
+            except Exception as e:  # re-raised by run on the caller's thread
+                error = e
+            finally:
+                with drained:
+                    stopped = True
+                    drained.notify_all()
+
+        def _wait_drained(seq):
+            """Block until batch `seq` is drained; re-raise what stopped the
+            drainer."""
+            with drained:
+                drained.wait_for(lambda: drained_seq >= seq or stopped)
+            if error is not None:
+                raise error
+
         def _flush_batch():
             nonlocal flushed
             if not batch_names:
                 return
             seq, flushed = flushed, flushed + 1
+            if seq and drained_seq >= seq - 1:
+                timing.count('stream.early_drains')
             with timing.span('stream.flush', seq=seq):
                 with timing.span('stream.stack'):
                     stacked = torch.stack([torch.as_tensor(b) for b in batch_bytes])
@@ -223,29 +274,32 @@ class StreamingExecutor:
                         payload = _dispatch_device_jpeg(batch_names, out)
                 else:
                     payload = out
-            inflight.append((seq, list(batch_names), payload))
+            to_drain.put((seq, list(batch_names), payload))
             batch_names.clear()
             batch_bytes.clear()
-            # keep at most one batch in flight: drain the older one while the
-            # device chews on the newer
-            if len(inflight) > 1:
-                _drain_device(inflight.pop(0))
+            # at most two batches in flight: the device chews on this one
+            # while the one before it drains
+            _wait_drained(seq - 1)
 
-        for name, data in frames:
-            batch_names.append(name)
-            batch_bytes.append(data)
-            if len(batch_names) == self.batch_size:
-                _flush_batch()
-        _flush_batch()
-        while inflight:
-            _drain_device(inflight.pop(0))
+        drainer = threading.Thread(target=_drainer, name='stream.drainer', daemon=True)
+        drainer.start()
+        try:
+            for name, data in frames:
+                batch_names.append(name)
+                batch_bytes.append(data)
+                if len(batch_names) == self.batch_size:
+                    _flush_batch()
+            _flush_batch()
+            _wait_drained(flushed - 1)
 
-        if self._jpeg is not None:
             for _ in range(pending):
                 r = out_q.get()
                 results.append(r)
                 if on_result:
                     on_result(r)
+        finally:
+            to_drain.put(None)
+            drainer.join()
             for _ in workers:
                 jpeg_q.put(None)
             for t in workers:

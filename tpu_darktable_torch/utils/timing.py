@@ -48,7 +48,8 @@ spans `isp.input`, `graph.replay`, `graph.capture`, `stream.stack`,
 `rcd.interior`, `postprocess`, `bounds`, `normalize`, `denoise`,
 `bilateral`, `lap.pyramids`, `laplacian`, `metrics`, `tonemap` (the
 batched program) and `jpeg.begin`, `jpeg.dct`, `jpeg.scan` (a JPEG
-encode); counters `graph.captures` (by owner) and `jpeg.host_fallbacks`.
+encode); counters `graph.captures` (by owner), `jpeg.host_fallbacks` and
+`stream.early_drains`.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ _log: deque = deque(maxlen=CAPACITY)     # (mark id, name, call, host s, device)
 _rings: dict = {}                        # device -> _Ring, kept for good
 _ids = itertools.count(1)
 _calls = itertools.count(1)
-_counts: dict = {'graph.captures': {}, 'jpeg.host_fallbacks': 0}
+_counts: dict = {'graph.captures': {}, 'jpeg.host_fallbacks': 0, 'stream.early_drains': 0}
 
 
 class Span(NamedTuple):
@@ -130,6 +131,7 @@ def reset() -> None:
     with _lock:
         _counts['graph.captures'] = {}
         _counts['jpeg.host_fallbacks'] = 0
+        _counts['stream.early_drains'] = 0
 
 
 # ---- spans ----
