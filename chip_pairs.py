@@ -17,7 +17,10 @@ core; deaec77: the last with the sorting-network colour smoothing and the
 shared-ring grid blur).  They are built with the port's nvcc flags and run
 in turns with the sources of the tree (earlier, new, new, earlier; three
 rounds of 20 launches, CUDA events), so that the card's clock and power
-state are shared by both:
+state are shared by both.  Every build is bound through the port's
+declaration of its entry point (kernels/_build.py ENTRIES; the five-launch
+bilateral source, whose entry point the tree no longer has, through its
+own `Entry`):
 
   - rcd_interior at 4096x3000 RGGB: the new kernel and a few variants of
     it (tile shape, threads a block, blocks an SM; each built from the
@@ -220,6 +223,7 @@ def kernel_pairs(key, libs, make_run, err_of, tol, result):
 
 def rcd_pairs(libs, dev, result):
     """libs: {'parent', 'new', variants...} -> CDLL of an RCD source."""
+    from tpu_darktable_torch.kernels._build import ENTRIES
     from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
 
     h, w = 3000, 4096
@@ -229,9 +233,7 @@ def rcd_pairs(libs, dev, result):
     outs = {name: torch.empty((3, h, w), device=dev) for name in libs}
 
     def make_run(name, lib):
-        fn = lib.rcd_interior_launch
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = ENTRIES['rcd_interior'].bind(lib)
 
         def run():
             status = fn(x.data_ptr(), outs[name].data_ptr(), h, w, 0, 0, 1, 1, stream)
@@ -256,10 +258,10 @@ def old_tables(k, wf, wi, dev):
 
 
 def wiener_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels._build import ENTRIES
     from tpu_darktable_torch.kernels.wiener_core import wiener_tile_core_plain
     from tpu_darktable_torch.ops.wiener import _gaussian_window
 
-    argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev).manual_seed(11)
     for k, shape, n_sig in ((32, (16, 3072, 4160), 1), (16, (12, 1536, 2080), 3)):
@@ -273,8 +275,7 @@ def wiener_pairs(libs, dev, result):
         outs = {name: torch.empty_like(x) for name in libs}
 
         def call(name):
-            fn = libs[name].wiener_core_launch
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fn = ENTRIES['wiener_tile_core'].bind(libs[name])
             tab = tables if name == 'parent' else windows
 
             def run():
@@ -310,17 +311,17 @@ def wiener_pairs(libs, dev, result):
 
 
 def bilateral_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels._build import ENTRIES, Entry
     from tpu_darktable_torch.ops.bilateral import compute_grid_size
 
     h, w = 3000, 4096
     gen = torch.Generator(device=dev).manual_seed(12)
     lum = torch.rand((h, w), generator=gen, device=dev) * 0.95
     stream = torch.cuda.current_stream().cuda_stream
-    band = libs['band'].bilateral_band_launch
-    band.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fused = libs['fused'].bilateral_fused_launch
-    fused.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    band = Entry('bilateral_band.cu', 'bilateral_band_launch',
+                 (p, p, p, p, i, i, i, i, ctypes.c_float, p)).bind(libs['band'])
+    fused = ENTRIES['bilateral_fused'].bind(libs['fused'])
     cases = [(s, compute_grid_size(w, h, float(s), 0.2)[2], 0.2) for s in (1, 2, 8)]
     cases.append((2, 51, 0.02))
     for s, gz, sr in cases:
@@ -348,6 +349,7 @@ def bilateral_pairs(libs, dev, result):
 
 
 def color_smooth_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels._build import ENTRIES
     from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
 
     h, w, n = 3000, 4096, 3
@@ -358,9 +360,7 @@ def color_smooth_pairs(libs, dev, result):
     outs = {name: torch.empty_like(d) for name in libs}
 
     def make_run(name, lib):
-        fn = lib.color_smooth_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = ENTRIES['color_smooth_diffs'].bind(lib)
 
         def run():
             status = fn(d.data_ptr(), g.data_ptr(), outs[name].data_ptr(), h, w, n, stream)
@@ -373,7 +373,7 @@ def color_smooth_pairs(libs, dev, result):
                  lambda name: (outs[name] - plain).abs().max().item(), 0.0, result)
     # What a pass costs against what staging and the store cost: the tree's
     # source at 1 to 5 passes.
-    fn = libs['new'].color_smooth_launch
+    fn = ENTRIES['color_smooth_diffs'].bind(libs['new'])
 
     def passes(k):
         if fn(d.data_ptr(), g.data_ptr(), outs['new'].data_ptr(), h, w, k, stream) != 0:
@@ -385,6 +385,7 @@ def color_smooth_pairs(libs, dev, result):
 
 
 def grid_blur_pairs(libs, dev, result):
+    from tpu_darktable_torch.kernels._build import ENTRIES
     from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
 
     shape = (6, 1001, 1366)
@@ -396,9 +397,7 @@ def grid_blur_pairs(libs, dev, result):
         z_gauss = int(z_mode == 'gaussian')
 
         def make_run(name, lib):
-            fn = lib.grid_blur_launch
-            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn = ENTRIES['grid_blur_xyz'].bind(lib)
 
             def run():
                 status = fn(grid.data_ptr(), outs[name].data_ptr(), *shape, z_gauss, stream)

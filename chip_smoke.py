@@ -365,13 +365,13 @@ def phase_card_and_build():
 
     t0 = time.perf_counter()
     seconds = _build.build()
-    log(f'kernels built in {time.perf_counter() - t0:.1f} s (per kernel: '
+    log(f'kernels built in {time.perf_counter() - t0:.1f} s (per source: '
         + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()) + ')')
-    for name in _build.SOURCES:
-        lib = _build._lib_path(name)
+    for source in dict.fromkeys(e.source for e in _build.ENTRIES.values()):
+        lib = _build._lib_path(source)
         ptxas = [ln for ln in lib.with_suffix('.log').read_text().splitlines()
                  if 'registers' in ln or 'spill' in ln]
-        log(f'  {name}: ' + ' | '.join(s.strip() for s in ptxas))
+        log(f'  {source}: ' + ' | '.join(s.strip() for s in ptxas))
     return smi
 
 

@@ -4,7 +4,9 @@ There is no nvcc here, so each csrc/*.cu is rewritten into C++ against a
 small emulation of CUDA (EMU_HEADER below: every block runs its blockDim
 threads as fibres with a working __syncthreads(), blocks one after another),
 built with g++ -ffp-contract=off (like nvcc --fmad=false) and called
-through the same C entry points the wrappers use.  It checks the kernels'
+through the same C entry points the wrappers use, each bound through its
+declaration in kernels/_build.py `ENTRIES`, which is held against the
+sources' prototypes here too.  It checks the kernels'
 indexing, halos and arithmetic against their plain versions, bit for bit
 (the Wiener tile core, an FFT whose sums cannot run in its plain version's
 order, against the function in float64 and against the plain version, each
@@ -17,12 +19,13 @@ import ctypes
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_darktable_torch.kernels._build import CSRC
+from tpu_darktable_torch.kernels._build import CSRC, ENTRIES
 from tpu_darktable_torch.kernels.bilateral_band import bilateral_band_plain
 from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused_plain
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
@@ -214,6 +217,50 @@ def _p(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _bound(emu_lib, name):
+    """Entry point `name` of the host build of its source, bound through
+    the port's declaration of it."""
+    entry = ENTRIES[name]
+    return entry.bind(emu_lib[Path(entry.source).stem])
+
+
+# The ctypes type of each C parameter type of a launcher (a pointer: c_void_p).
+_C_TYPES = {'int': ctypes.c_int, 'float': ctypes.c_float, 'long long': ctypes.c_longlong,
+            'unsigned long long': ctypes.c_ulonglong, 'cudaStream_t': ctypes.c_void_p}
+
+
+def _prototypes():
+    """{symbol: (source, [ctypes type of each parameter])} of every
+    `extern "C" int *_launch(...)` in csrc/."""
+    out = {}
+    for cu in sorted(CSRC.glob('*.cu')):
+        for symbol, params in re.findall(r'extern "C" int (\w+_launch)\s*\(([^)]*)\)',
+                                         cu.read_text()):
+            types = []
+            for param in params.split(','):
+                decl = ' '.join(re.sub(r'\bconst\b', ' ', param).split())
+                types.append(ctypes.c_void_p if '*' in decl else _C_TYPES[decl.rsplit(' ', 1)[0]])
+            out[symbol] = (cu.name, types)
+    return out
+
+
+_PROTOTYPES = _prototypes()
+_DECLARED = {e.symbol: e for e in ENTRIES.values()}
+
+
+@pytest.mark.parametrize('symbol', sorted(set(_PROTOTYPES) | set(_DECLARED)))
+def test_declared_entry_point_matches_its_prototype(symbol):
+    """Every launcher of csrc/ is declared, with its source and with ctypes
+    types that match its prototype's parameters type by type, and every
+    declared launcher is in csrc/: a changed signature cannot reach the
+    card with the old declaration."""
+    assert symbol in _PROTOTYPES, f'{symbol} is declared but csrc/ defines no such launcher'
+    assert symbol in _DECLARED, f'{symbol} of csrc/ is not declared in kernels/_build.py'
+    source, types = _PROTOTYPES[symbol]
+    assert _DECLARED[symbol].source == source
+    assert list(_DECLARED[symbol].argtypes) == types
+
+
 @pytest.mark.parametrize('h,w', [
     (28, 60),                # inside one 64x32 tile
     (76, 102), (70, 140),    # two and three tiles each way, ragged right and bottom
@@ -226,8 +273,7 @@ def test_rcd_interior_source_on_host(emu_lib, rng, pattern, h, w):
     x = rng.random((h, w)).astype(np.float32)
     out = np.zeros((3, h, w), np.float32)
     rp, bp = site_parities(BayerPattern[pattern])
-    fn = emu_lib['rcd_interior'].rcd_interior_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _bound(emu_lib, 'rcd_interior')
     assert fn(_p(x), _p(out), h, w, rp[0], rp[1], bp[0], bp[1], None) == 0
     ref = rcd_interior_plain(torch.from_numpy(x), r_par=rp, b_par=bp).numpy()
     r = RING
@@ -242,10 +288,7 @@ def test_mark_source_on_host(emu_lib):
     count = np.zeros(1, np.int64)
     ring = np.full((capacity, 2), -1, np.int64)
     lib = emu_lib['mark']
-    fn = lib.trace_mark_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _bound(emu_lib, 'trace_mark')
     lib.emu_set_clock.argtypes = [ctypes.c_ulonglong]
     for k in range(5):
         lib.emu_set_clock(10**12 + 1000 * k)
@@ -261,25 +304,22 @@ def test_rcd_interior_source_refuses_non_bayer_sites(emu_lib):
     returns cudaErrorInvalidValue and launches nothing."""
     x = np.ones((40, 40), np.float32)
     out = np.full((3, 40, 40), -1.0, np.float32)
-    fn = emu_lib['rcd_interior'].rcd_interior_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _bound(emu_lib, 'rcd_interior')
     assert fn(_p(x), _p(out), 40, 40, 0, 0, 0, 1, None) == 1
     assert fn(_p(x), _p(out), 40, 40, 0, 1, 1, 1, None) == 1
     assert (out == -1.0).all()
 
 
-# Each launcher that asks for dynamic shared memory: argtypes, and arguments
-# on a small valid input (x (1, 20, 24), out (3, 20, 24), thr (1,)) that take
-# the path with the cudaFuncSetAttribute call.
-_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Each source whose launcher asks for dynamic shared memory: the launcher's
+# name, and arguments on a small valid input (x (1, 20, 24), out (3, 20, 24),
+# thr (1,)) that take the path with the cudaFuncSetAttribute call.
 ATTRIBUTE_LAUNCHES = {
-    'rcd_interior': ([_V] * 2 + [_I] * 6 + [_V], lambda x, o, t: (x, o, 20, 24, 0, 0, 1, 1, None)),
-    'color_smooth': ([_V] * 3 + [_I] * 3 + [_V], lambda x, o, t: (o, x, o, 20, 24, 1, None)),
-    'wavelet': ([_V] * 5 + [_I] * 4 + [_V], lambda x, o, t: (x, t, o, o, o, 1, 20, 24, 2, None)),
-    'nlm': ([_V] * 2 + [_I] * 5 + [_F, _V], lambda x, o, t: (x, o, 1, 20, 24, 2, 1, 10.0, None)),
-    'bilateral_fused': ([_V] * 2 + [_I] * 4 + [_F, _I, _V],
-                        lambda x, o, t: (x, o, 20, 24, 1, 6, 0.2, 0, None)),
-    'wiener_core': ([_V] * 4 + [_I] * 5 + [_V], lambda x, o, t: (x, o, t, o, 16, 1, 1, 1, 1, None)),
+    'rcd_interior': ('rcd_interior', lambda x, o, t: (x, o, 20, 24, 0, 0, 1, 1, None)),
+    'color_smooth': ('color_smooth_diffs', lambda x, o, t: (o, x, o, 20, 24, 1, None)),
+    'wavelet': ('wavelet_core', lambda x, o, t: (x, t, o, o, o, 1, 20, 24, 2, None)),
+    'nlm': ('nlm_core', lambda x, o, t: (x, o, 1, 20, 24, 2, 1, 10.0, None)),
+    'bilateral_fused': ('bilateral_fused', lambda x, o, t: (x, o, 20, 24, 1, 6, 0.2, 0, None)),
+    'wiener_core': ('wiener_tile_core', lambda x, o, t: (x, o, t, o, 16, 1, 1, 1, 1, None)),
 }
 
 
@@ -293,9 +333,8 @@ def test_launcher_returns_attribute_status(emu_lib, rng, lib):
     x = rng.random((1, 20, 24)).astype(np.float32)
     out = np.zeros((3, 20, 24), np.float32)
     thr = np.full(1, 0.1, np.float32)
-    argtypes, args = ATTRIBUTE_LAUNCHES[lib]
-    fn = getattr(emu_lib[lib], f'{lib}_launch')
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    name, args = ATTRIBUTE_LAUNCHES[lib]
+    fn = _bound(emu_lib, name)
     emu_lib[lib].emu_set_attribute_status(7)
     try:
         assert fn(*args(_p(x), _p(out), _p(thr))) == 7
@@ -325,8 +364,7 @@ def test_color_smooth_source_on_host(emu_lib, rng, h, w, n_passes, ties):
         d = (rng.random((2, h, w)) - 0.5).astype(np.float32)
         g = (rng.random((h, w)) - 0.1).astype(np.float32)
     out = np.full_like(d, np.nan)
-    fn = emu_lib['color_smooth'].color_smooth_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _bound(emu_lib, 'color_smooth_diffs')
     assert fn(_p(d), _p(g), _p(out), h, w, n_passes, None) == 0
     ref = color_smooth_diffs_plain(torch.from_numpy(d), torch.from_numpy(g), n_passes=n_passes)
     np.testing.assert_array_equal(out, ref.numpy())
@@ -346,8 +384,7 @@ def test_grid_blur_source_on_host(emu_lib, rng, shape, z_mode):
     both z modes: bit-exact."""
     grid = (rng.random(shape) - 0.3).astype(np.float32)
     out = np.full_like(grid, np.nan)
-    fn = emu_lib['grid_blur'].grid_blur_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = _bound(emu_lib, 'grid_blur_xyz')
     assert fn(_p(grid), _p(out), *shape, int(z_mode == 'gaussian'), None) == 0
     ref = grid_blur_xyz_plain(torch.from_numpy(grid), z_mode=z_mode)
     np.testing.assert_array_equal(out, ref.numpy())
@@ -370,8 +407,7 @@ def test_wavelet_source_on_host(emu_lib, rng, shape, levels):
     thr = np.array([0.15, 0.1, 0.2][: shape[0]], np.float32)
     out = np.zeros_like(x)
     cur, tmp = np.zeros_like(x), np.zeros_like(x)
-    fn = emu_lib['wavelet'].wavelet_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = _bound(emu_lib, 'wavelet_core')
     assert fn(_p(x), _p(thr), _p(out), _p(cur), _p(tmp), *shape, levels, None) == 0
     ref = wavelet_core_plain(torch.from_numpy(x), torch.from_numpy(thr), levels=levels)
     np.testing.assert_array_equal(out, ref.numpy())
@@ -392,8 +428,7 @@ def test_nlm_source_on_host(emu_lib, rng, shape, sr, pr):
     x = rng.random(shape).astype(np.float32)
     inv_h2 = 1.0 / (0.1 * 0.1 * (2 * pr + 1) ** 2 * shape[0])
     out = np.zeros_like(x)
-    fn = emu_lib['nlm'].nlm_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn = _bound(emu_lib, 'nlm_core')
     assert fn(_p(x), _p(out), *shape, sr, pr, inv_h2, None) == 0
     ref = nlm_core_plain(torch.from_numpy(x), inv_h2, search_radius=sr, patch_radius=pr)
     assert np.abs(out - ref.numpy()).max() <= 1e-6
@@ -422,9 +457,7 @@ def test_bilateral_source_on_host(emu_lib, rng, wrapper, h, w, s, gz, sr, z_mode
     lum = (rng.random((h, w)) * 0.95).astype(np.float32)
     lum[:3, :5] = 0.0   # zero luminance next to the pad: the tent at z = 0 must not leak
     out = np.zeros_like(lum)
-    fn = emu_lib['bilateral_fused'].bilateral_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = _bound(emu_lib, f'bilateral_{wrapper}')
     assert fn(_p(lum), _p(out), h, w, s, gz, sr, int(z_mode == 'gaussian'), None) == 0
     if wrapper == 'band':
         ref = bilateral_band_plain(torch.from_numpy(lum), s=s, gz=gz, sigma_r=sr)
@@ -468,8 +501,7 @@ def test_wiener_core_source_on_host(emu_lib, rng, k, g, n_ty, n_tx, n_sig, offse
     windows = np.ascontiguousarray(_windows(k, wf.tobytes(), wi.tobytes(),
                                             torch.device('cpu')).numpy())
     out = np.full_like(x, np.nan)
-    fn = emu_lib['wiener_core'].wiener_core_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _bound(emu_lib, 'wiener_tile_core')
     assert fn(_p(x), _p(out), _p(sig2), _p(windows), k, g, n_ty, n_tx, n_sig, None) == 0
     scale = max(1.0, np.abs(x).max())
     exact = _wiener_core_float64(x, sig2, wf, wi, k)
@@ -492,8 +524,7 @@ def _emu_jpeg_entropy(lib, comp_blocks, subsampling, ri, cap_words):
     scratch = np.full(n_chunks + 2 * n_iv, -7, np.int64)
     blocks = [np.ascontiguousarray(b, np.int16) for b in comp_blocks]
     ptrs = [_p(b) for b in blocks] + [None] * (3 - len(blocks))
-    fn = lib.jpeg_entropy_launch
-    fn.argtypes = [_V] * 4 + [ctypes.c_longlong] * 2 + [_I, ctypes.c_longlong] + [_V] * 7
+    fn = ENTRIES['jpeg_entropy'].bind(lib)
     tables = table_entries()
     assert fn(*ptrs, _p(tables), n_mcu, ri, bpm, cap_words, _p(bits), _p(scratch),
               _p(scratch[n_chunks:]), _p(scratch[n_chunks + n_iv:]), _p(small), _p(words),
@@ -626,7 +657,6 @@ def test_jpeg_entropy_source_flags_out_of_range(emu_lib, prev, dc, ac):
 def test_jpeg_entropy_launcher_refuses_bad_arguments(emu_lib):
     """bpm 2, no MCUs or a restart interval of 0: cudaErrorInvalidValue, and
     nothing launched."""
-    fn = emu_lib['jpeg_entropy'].jpeg_entropy_launch
-    fn.argtypes = [_V] * 4 + [ctypes.c_longlong] * 2 + [_I, ctypes.c_longlong] + [_V] * 7
+    fn = _bound(emu_lib, 'jpeg_entropy')
     for n_mcu, ri, bpm in ((4, 1, 2), (0, 1, 1), (4, 0, 1)):
         assert fn(*[None] * 4, n_mcu, ri, bpm, 16, *[None] * 7) == 1

@@ -154,8 +154,8 @@ def test_capture_adds_no_launch_and_each_replay_adds_its_capture(stand_in):
 
     def fn(x, y):
         calls.append(x.shape)
-        kernels.launches['rcd_interior'] += 1
-        kernels.launches['bilateral_band'] += 2
+        kernels.count('rcd_interior')
+        kernels.count('bilateral_band', 2)
         return x * 2, y + 1
 
     g = _graph.Graphed(fn)
@@ -164,7 +164,7 @@ def test_capture_adds_no_launch_and_each_replay_adds_its_capture(stand_in):
     assert torch.equal(out[0], x * 2) and len(calls) == 2 and _StandInCapture.entered == 1
     assert kernels.launches['rcd_interior'] == 1 and kernels.launches['bilateral_band'] == 2
     entry = g._captured[_graph.capture_key((x, y))]
-    assert entry.launches == {'rcd_interior': 1, 'bilateral_band': 2}
+    assert entry.made.launches == {'rcd_interior': 1, 'bilateral_band': 2}
 
     replayed = g(x + 10, y)
     assert len(calls) == 2 and _StandInGraph.replays == 1
@@ -181,7 +181,7 @@ def test_capture_adds_no_launch_and_each_replay_adds_its_capture(stand_in):
 
 
 def test_a_capture_in_one_thread_keeps_the_counts_of_another():
-    """While one thread captures (its launches go to the capture's dict),
+    """While one thread captures (its launches go to its capture record),
     another thread's launches count as usual, and what the capture records
     is its own thread's alone; likewise the device constants a capture
     holds.  Stressed with a short switch interval."""
@@ -193,12 +193,12 @@ def test_a_capture_in_one_thread_keeps_the_counts_of_another():
     def capture():
         try:
             while not stop.is_set():
-                with kernels.uncounted() as m, _device.holding() as h:
-                    kernels.launches['wavelet_core'] += 1
-                    kernels.launches['wavelet_core'] += 1
+                with _device.capturing() as record:
+                    kernels.count('wavelet_core')
+                    kernels.count('wavelet_core')
                     _device.scalar_on(2.0, 'cpu')
-                made.append(m)
-                held.append(len(h))
+                made.append(record.launches)
+                held.append(len(record.held))
         except Exception as e:   # reported below
             errors.append(e)
 
@@ -209,7 +209,7 @@ def test_a_capture_in_one_thread_keeps_the_counts_of_another():
     try:
         t.start()
         for _ in range(20000):
-            kernels.launches['rcd_interior'] += 1
+            kernels.count('rcd_interior')
             _device.scalar_on(3.0, 'cpu')
     finally:
         stop.set()
@@ -230,7 +230,7 @@ def test_capture_holds_the_device_constants_it_read(stand_in):
     g = _graph.Graphed(fn)
     x = torch.ones(2)
     g(x)
-    held = g._captured[_graph.capture_key((x,))].held
+    held = g._captured[_graph.capture_key((x,))].made.held
     assert len(held) == 2 and held[0].shape == () and held[1].tolist() == [1.0, 2.0]
     _device.clear_caches()
     assert _device.scalar_on(3.0, x.device) is not held[0]

@@ -33,7 +33,7 @@ from tpu_darktable import denoise as jdenoise
 from tpu_darktable import local_contrast as jlc
 
 import tpu_darktable_torch as tt
-from tpu_darktable_torch import _graph, kernels, parallel
+from tpu_darktable_torch import _device, _graph, kernels, parallel
 from tpu_darktable_torch.pipeline.config import Debayer
 from tpu_darktable_torch.pipeline.streaming import StreamingExecutor
 from tpu_darktable_torch.scripts import run_benchmark
@@ -55,7 +55,7 @@ class _Emulated:
 
     def replay(self):
         self.replays += 1
-        with kernels.uncounted():
+        with _device.capturing():
             new = self.rerun()
         new = (new,) if isinstance(new, torch.Tensor) else new
         for out, value in zip(self.outputs, new):

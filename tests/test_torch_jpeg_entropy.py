@@ -255,8 +255,8 @@ def test_kernel_scan_at_cell_shapes_on_card(card, h, w, ri):
 @pytest.mark.parametrize('h,w', [(480, 640), (1080, 1920)])
 def test_jpeg_graphs_replay_the_kernel_on_card(card, h, w):
     """A Jpeg's scan graph replays the kernel: its first encode runs it
-    eagerly (3 launches counted) and captures it, each replay adds the
-    capture's 3 (`add_launches`); the bytes equal the host scan's, through
+    eagerly (3 launches counted) and captures it, each replay adds the 3
+    its capture record holds; the bytes equal the host scan's, through
     encode and encode_async, and no encode falls back to the host at q90
     (at 1080x1920 one interval a row of MCUs, at 480x640 one a frame)."""
     from tpu_darktable_torch.jpeg import Jpeg

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import tpu_darktable_torch as tt
-from tpu_darktable_torch import _graph, kernels
+from tpu_darktable_torch import _device, _graph, kernels
 from tpu_darktable_torch.ops.packed import encode12_float
 from tpu_darktable_torch.ops import jpeg as jp
 from tpu_darktable_torch.pipeline.config import Debayer, ImageProcessingSettings, ToneMapper
@@ -139,7 +139,7 @@ def test_tracing_off_records_nothing_and_launches_nothing(untraced, monkeypatch)
     def refuse(*a, **k):
         raise AssertionError('a mark was made with the tracer off')
 
-    monkeypatch.setattr(timing, '_launch', refuse)
+    monkeypatch.setattr(kernels, 'launch', refuse)
     monkeypatch.setattr(timing, '_write_plain', refuse)
     proc = _processor()
     frames = _frames(64, 48, 4)
@@ -149,10 +149,10 @@ def test_tracing_off_records_nothing_and_launches_nothing(untraced, monkeypatch)
     with timing.call('begin', CPU):
         timing.mark('inside')
     assert timing.spans() == [] and timing.marks() == [] and not timing.tracing()
-    with timing.capturing() as made:
+    with _device.capturing() as made:
         with timing.call('begin', CPU):
             timing.mark('captured')
-    assert made == []
+    assert made.marks == []
 
 
 def test_cpu_marks_in_order_with_the_right_count_a_call(tracer):
@@ -191,14 +191,14 @@ class _MarkGraph:
     CPU ring as the graph's mark nodes do on the card."""
 
     def replay(self):
-        with timing.capturing():
+        with _device.capturing():
             self.rerun()
         for mark_id, _ in self.marks:
             timing._write_plain(timing._ring(CPU), mark_id)
 
 
 def _mark_record(graph, pool, fn, inputs):
-    graph.marks = timing._local.capture     # the capture's list, filled by fn
+    graph.marks = _device.current_capture().marks   # the capture's, filled by fn
     graph.rerun = lambda: fn(*inputs)
     return fn(*inputs)
 
@@ -228,7 +228,7 @@ def test_a_capture_with_marks_adds_them_on_every_replay(tracer, emulated):
     x = torch.arange(4.0)
     g(x)                                     # eager, then the capture
     entry = g._captured[_graph.capture_key((x,)) + timing.TRACED]
-    assert [n for _, n in entry.marks] == ['begin', 'a', 'b']
+    assert [n for _, n in entry.made.marks] == ['begin', 'a', 'b']
     assert len(timing.marks()) == 3          # the eager call's; the capture logs none
     g(x + 1)
     g(x + 2)
@@ -250,12 +250,12 @@ def test_tracing_state_splits_the_capture_key(emulated, untraced):
     x = torch.arange(4.0)
     g(x)
     key = _graph.capture_key((x,))
-    assert list(g._captured) == [key] and g._captured[key].marks == []
+    assert list(g._captured) == [key] and g._captured[key].made.marks == []
     timing.enable()
     try:
         g(x)                                 # a new capture, with its marks
         assert list(g._captured) == [key, key + timing.TRACED]
-        assert len(g._captured[key + timing.TRACED].marks) == 3
+        assert len(g._captured[key + timing.TRACED].made.marks) == 3
     finally:
         timing.disable()
     g(x)                                     # a replay of the capture without marks

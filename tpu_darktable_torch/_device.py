@@ -1,16 +1,23 @@
-"""Device resolution for the port's public entry points, and the device
-constants of its ops.
+"""Device resolution for the port's public entry points, the device
+constants of its ops, and the record of a CUDA graph capture.
 
 Entry points run on the card unless the caller asks for the CPU.  Asking
 for the card where there is none raises: nothing falls back to the CPU.
 
 A constant that an op needs on the device every call (a gain tile, a white
 point, a divisor) is made once for each value and device and kept in a
-bounded cache (`device_cache`).  A CUDA graph (_graph.py) holds the raw
-pointers of the constants its program read while it was captured, so
-while a capture runs every cache reports the values it hands out to the
-capturing thread (`holding`), and the graph keeps them alive after the
-cache has dropped them.
+bounded cache (`device_cache`).
+
+A CUDA graph's capture (_graph.py) runs nothing, yet what the program
+does while it is captured must be accounted for: the kernel launches it
+counts (kernels.count), the tracer's marks it makes (utils/timing.py) and
+the device constants it reads, whose raw pointers the graph holds.  So
+while a thread captures, all three go to its record (`capturing`), which
+the graph keeps: each replay counts the record's launches and logs its
+marks, and the constants stay alive after the caches have dropped them.
+Only the capturing thread's record is used: a capture in one thread (the
+streaming executor's JPEG workers) leaves the counts and marks of what
+other threads run meanwhile where they belong.
 """
 
 from __future__ import annotations
@@ -18,12 +25,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-# .held: the values the device caches hand out to this thread while it
-# captures, or None
+# .capture: the record of the capture this thread runs, or None
 _local = threading.local()
 _caches: list = []
 
@@ -53,17 +60,17 @@ def to_device(values, device, dtype=None) -> torch.Tensor:
 
 def device_cache(maxsize: int):
     """functools.lru_cache for a function whose result holds tensors on a
-    device; each value it returns while a capture runs is also appended to
-    the capture's list (`holding`)."""
+    device; each value it returns while the calling thread captures is
+    also kept in its record (`capturing`)."""
     def decorate(fn):
         cached = functools.lru_cache(maxsize=maxsize)(fn)
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             value = cached(*args, **kwargs)
-            held = getattr(_local, 'held', None)
-            if held is not None:
-                held.append(value)
+            record = current_capture()
+            if record is not None:
+                record.held.append(value)
             return value
 
         wrapper.cache_clear = cached.cache_clear
@@ -73,16 +80,29 @@ def device_cache(maxsize: int):
     return decorate
 
 
+@dataclass
+class Capture:
+    """What one thread does while it captures a CUDA graph."""
+    launches: dict = field(default_factory=dict)   # kernel launches by name (kernels.count)
+    marks: list = field(default_factory=list)      # the tracer's marks: (mark id, name)
+    held: list = field(default_factory=list)       # the device constants it read
+
+
+def current_capture() -> Capture | None:
+    """The record of the capture the calling thread runs, if it runs one."""
+    return getattr(_local, 'capture', None)
+
+
 @contextlib.contextmanager
-def holding():
-    """Collect the values that the device caches hand out to this thread
-    inside the block into the list it yields."""
-    outer = getattr(_local, 'held', None)
-    _local.held = held = []
+def capturing():
+    """Inside the block, what the calling thread launches, marks and reads
+    from the device caches goes to the record it yields."""
+    outer = current_capture()
+    _local.capture = record = Capture()
     try:
-        yield held
+        yield record
     finally:
-        _local.held = outer
+        _local.capture = outer
 
 
 def clear_caches() -> None:
@@ -111,5 +131,5 @@ def scalar_on(value: float, device) -> torch.Tensor:
     return constant_on(np.float32(value), device)
 
 
-__all__ = ['clear_caches', 'constant_on', 'device_cache', 'holding', 'resolve_device',
-           'scalar_on', 'to_device']
+__all__ = ['Capture', 'capturing', 'clear_caches', 'constant_on', 'current_capture',
+           'device_cache', 'resolve_device', 'scalar_on', 'to_device']

@@ -35,8 +35,8 @@ changes on the next call.  Arguments with no tensor on a card go straight
 to `fn`: the CPU runs the program eagerly.
 
 What a captured graph needs after its capture:
-- the device constants it read (_device.device_cache hands them out during
-  the capture, and the entry keeps them, whatever the caches drop later);
+- the device constants it read (the capture's record, _device.capturing,
+  keeps them, whatever the caches drop later);
 - no host value copied inside `fn` (a replay would read the pinned buffer
   again, which the host allocator may have reused): the ops take their
   constants from the device caches;
@@ -44,13 +44,13 @@ What a captured graph needs after its capture:
   eager fallback.
 
 The kernel launch counts (kernels.launches) mean launches that ran: a
-capture adds nothing, each replay adds what its capture recorded.  The
-tracer's device marks (utils/timing.py) are kept the same way: a capture
-keeps the marks it made, each replay logs them.  While the tracer is on,
-the key that a wrapper looks its captures up by also holds the tracing
-state, so a graph captured with marks is never replayed without the
-tracer, nor one without marks under it; each replay is a `graph.replay`
-span, each capture a `graph.capture` span and a count of
+capture adds nothing, each replay adds what its capture's record holds.
+The tracer's device marks (utils/timing.py) are kept the same way: a
+capture's record keeps the marks it made, each replay logs them.  While
+the tracer is on, the key that a wrapper looks its captures up by also
+holds the tracing state, so a graph captured with marks is never replayed
+without the tracer, nor one without marks under it; each replay is a
+`graph.replay` span, each capture a `graph.capture` span and a count of
 `graph.captures`, under the owner's name (the function's qualname).
 
 The captures of one wrapper sit in a bounded LRU (`_MAXSIZE` keys); a
@@ -187,9 +187,7 @@ class _Captured:
     inputs: tuple            # the arguments: static buffers for the tensors
     outputs: tuple           # the static outputs the graph writes
     single: bool             # fn returned one tensor, not a tuple
-    held: list               # the device constants it read
-    launches: dict           # kernel launches a replay runs, by name
-    marks: list              # the tracer's marks a replay records: (id, name)
+    made: _device.Capture    # its launches, marks and device constants
     device: torch.device     # its device
     index: int               # its CUDA device
 
@@ -198,11 +196,12 @@ class _Captured:
             for buf, a in zip(self.inputs, args):
                 if isinstance(buf, torch.Tensor):
                     buf.copy_(a)
-            if self.marks:
-                timing.replayed(self.marks, self.device)
+            if self.made.marks:
+                timing.replayed(self.made.marks, self.device)
             self.graph.replay()
             out = tuple(t.clone() for t in self.outputs)
-        kernels.add_launches(self.launches)
+        for name, n in self.made.launches.items():
+            kernels.count(name, n)
         return out[0] if self.single else out
 
 
@@ -244,16 +243,15 @@ class Graphed:
         index = _device_index(device)
         try:
             with timing.span('graph.capture', owner=self.owner), _capture_lock, \
-                    kernels.uncounted() as made, timing.capturing() as marks, \
-                    _device.holding() as held, torch.cuda.device(index):
+                    _device.capturing() as made, torch.cuda.device(index):
                 outputs = _record(graph, self.pool.handle(index, graph), self.fn, inputs)
         except Exception as e:
             raise RuntimeError(f'capturing {self.owner} as a CUDA graph failed for inputs {key}: '
                                f'{e}') from e
         timing.count('graph.captures', self.owner)
         single = isinstance(outputs, torch.Tensor)
-        return _Captured(graph, inputs, (outputs,) if single else tuple(outputs), single, held,
-                         made, marks, device, index)
+        return _Captured(graph, inputs, (outputs,) if single else tuple(outputs), single, made,
+                         device, index)
 
 
 __all__ = ['GraphPool', 'Graphed', 'capture_key']

@@ -1,56 +1,32 @@
-"""Hand-written Hopper kernels of the port and their launch counts.
+"""Hand-written Hopper kernels of the port, their launch path and their
+launch counts.
 
 Each module here holds one kernel's wrapper and its plain PyTorch version.
-A wrapper launches the CUDA kernel for a CUDA tensor and runs the plain
-version for a CPU tensor; it adds one to `launches[name]` where it
-launches the kernel, and nowhere else.  The CUDA sources live in
-`tpu_darktable_torch/csrc/` and are built at first use (kernels/_build.py).
+A wrapper checks its arguments and runs the plain version for a CPU
+tensor; for a CUDA tensor it allocates the outputs and calls `launch` with
+the C entry point's arguments in their order.  The entry points are
+declared once, in kernels/_build.py `ENTRIES`; their CUDA sources live in
+`tpu_darktable_torch/csrc/` and are built at first use.
 
-The counts mean launches that ran.  A CUDA graph's capture (_graph.py)
-enqueues nothing that runs, so what its wrapper calls count inside the
-capture goes to the capture's own dict (`uncounted`), and each replay adds
-what its capture recorded (`add_launches`).  The redirection is the
-capturing thread's alone: a capture in one thread (the streaming
-executor's JPEG workers) leaves the counts of launches that other threads
-run meanwhile where they belong.
+`launch` is the one place an entry point is called: it refuses a device
+that is not CUDA, passes the device's current stream last, raises on a
+nonzero cudaError_t and counts the call's launches.  The counts mean
+launches that ran: while the calling thread captures a CUDA graph they go
+to its capture record (_device.capturing), and each replay counts what
+its capture recorded (_graph.py).
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
+import torch
 
-# the dict the calling thread counts into while it captures, if it does
-_local = threading.local()
+from .. import _device
+from . import _build
 
-
-class _Launches(dict):
-    """Launch counts by kernel name; inside `uncounted` the calling
-    thread reads and writes its capture's dict instead."""
-
-    def __getitem__(self, name):
-        made = getattr(_local, 'made', None)
-        return super().__getitem__(name) if made is None else made.get(name, 0)
-
-    def __setitem__(self, name, n):
-        made = getattr(_local, 'made', None)
-        if made is None:
-            super().__setitem__(name, n)
-        else:
-            made[name] = n
-
-
-launches: dict[str, int] = _Launches({
-    'rcd_interior': 0,
-    'color_smooth_diffs': 0,
-    'bilateral_band': 0,
-    'grid_blur_xyz': 0,
-    'wavelet_core': 0,
-    'nlm_core': 0,
-    'wiener_tile_core': 0,
-    'bilateral_fused': 0,
-    'jpeg_entropy': 0,
-})
+# launches by kernel name, of every entry point that counts them
+launches: dict[str, int] = {name: 0 for name, e in _build.ENTRIES.items() if e.counts}
+# the entry points bound so far
+_bound: dict = {}
 
 
 def reset_launches() -> None:
@@ -58,22 +34,32 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-@contextlib.contextmanager
-def uncounted():
-    """What the calling thread counts inside the block goes to the dict
-    it yields, by name, and not to `launches`."""
-    outer = getattr(_local, 'made', None)
-    made: dict[str, int] = {}
-    _local.made = made
-    try:
-        yield made
-    finally:
-        _local.made = outer
-
-
-def add_launches(counts: dict[str, int]) -> None:
-    for name, n in counts.items():
+def count(name: str, n: int = 1) -> None:
+    """Count `n` launches of kernel `name`: in the calling thread's capture
+    record while it captures, else in `launches`."""
+    record = _device.current_capture()
+    if record is None:
         launches[name] += n
+    else:
+        record.launches[name] = record.launches.get(name, 0) + n
 
 
-__all__ = ['add_launches', 'launches', 'reset_launches', 'uncounted']
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point `name` with `args` (a tensor passes its data
+    pointer) and the current stream of `device`, and count its launches."""
+    entry = _build.ENTRIES[name]
+    if device.type != 'cuda':
+        raise RuntimeError(f'{name}: unsupported device {device}')
+    fn = _bound.get(entry)
+    if fn is None:
+        fn = _bound[entry] = entry.bind(_build.load(entry.source))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        status = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f'{name}: CUDA launch failed with cudaError_t {status}')
+    if entry.counts:
+        count(name, entry.counts)
+
+
+__all__ = ['count', 'launch', 'launches', 'reset_launches']

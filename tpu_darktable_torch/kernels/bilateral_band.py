@@ -18,11 +18,9 @@ version both wrappers are held against.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import launches
+from . import launch
 from .grid_blur import grid_blur_xyz_plain
 
 
@@ -36,23 +34,13 @@ def check_plane(lum: torch.Tensor, s: int, gz: int) -> None:
         raise ValueError(f'gz must be >= 2, got {gz}')
 
 
-def launch_detail_term(lum: torch.Tensor, s: int, gz: int, sigma_r: float,
+def launch_detail_term(name: str, lum: torch.Tensor, s: int, gz: int, sigma_r: float,
                        z_gauss: bool) -> torch.Tensor:
-    """One launch of csrc/bilateral_fused.cu on a CUDA plane; the caller
-    counts it."""
-    from ._build import check, load
-
-    fn = load('bilateral_fused').bilateral_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    """One launch of csrc/bilateral_fused.cu on a plane, counted under
+    `name`."""
     x = lum.contiguous()
     out = torch.empty_like(x)
-    h, w = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(x.data_ptr(), out.data_ptr(), h, w, s, gz, float(sigma_r), int(z_gauss), stream),
-              'bilateral_fused_launch')
+    launch(name, x.device, x, out, *x.shape, s, gz, float(sigma_r), int(z_gauss))
     return out
 
 
@@ -62,11 +50,7 @@ def bilateral_band(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float) -> tor
     check_plane(lum, s, gz)
     if lum.device.type == 'cpu':
         return bilateral_band_plain(lum, s=s, gz=gz, sigma_r=sigma_r)
-    if not lum.is_cuda:
-        raise RuntimeError(f'bilateral_band: unsupported device {lum.device}')
-    out = launch_detail_term(lum, s, gz, sigma_r, z_gauss=False)
-    launches['bilateral_band'] += 1
-    return out
+    return launch_detail_term('bilateral_band', lum, s, gz, sigma_r, z_gauss=False)
 
 
 def _splat_axis(img: torch.Tensor, axis: int, n_cells: int, s: int) -> torch.Tensor:

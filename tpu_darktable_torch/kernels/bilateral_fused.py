@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import torch
 
-from . import launches
 from .bilateral_band import bilateral_band_plain, check_plane, launch_detail_term
 from .grid_blur import Z_MODES
 
@@ -34,11 +33,8 @@ def bilateral_fused(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float,
         raise ValueError(f'z_mode must be one of {Z_MODES}, got {z_mode!r}')
     if lum.device.type == 'cpu':
         return bilateral_fused_plain(lum, s=s, gz=gz, sigma_r=sigma_r, z_mode=z_mode)
-    if not lum.is_cuda:
-        raise RuntimeError(f'bilateral_fused: unsupported device {lum.device}')
-    out = launch_detail_term(lum, s, gz, sigma_r, z_gauss=z_mode == 'gaussian')
-    launches['bilateral_fused'] += 1
-    return out
+    return launch_detail_term('bilateral_fused', lum, s, gz, sigma_r,
+                              z_gauss=z_mode == 'gaussian')
 
 
 def bilateral_fused_plain(lum: torch.Tensor, *, s: int, gz: int, sigma_r: float,

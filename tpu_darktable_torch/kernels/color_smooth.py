@@ -16,11 +16,9 @@ plain version, so the two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import launches
+from . import launch
 from ..ops._stencil import Shifter, median9
 
 
@@ -38,22 +36,10 @@ def color_smooth_diffs(diffs: torch.Tensor, g: torch.Tensor, *, n_passes: int) -
         raise ValueError(f'n_passes must be in [1, 32], got {n_passes}')
     if diffs.device.type == 'cpu':
         return color_smooth_diffs_plain(diffs, g, n_passes=n_passes)
-    if not diffs.is_cuda:
-        raise RuntimeError(f'color_smooth_diffs: unsupported device {diffs.device}')
-    from ._build import check, load
-
-    fn = load('color_smooth_diffs').color_smooth_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     d = diffs.contiguous()
-    gg = g.contiguous()
     _, h, w = d.shape
     out = torch.empty_like(d)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(d.data_ptr(), gg.data_ptr(), out.data_ptr(), h, w, n_passes, stream),
-              'color_smooth_diffs')
-    launches['color_smooth_diffs'] += 1
+    launch('color_smooth_diffs', d.device, d, g.contiguous(), out, h, w, n_passes)
     return out
 
 

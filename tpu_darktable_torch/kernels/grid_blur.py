@@ -14,11 +14,9 @@ grid size.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import launches
+from . import launch
 
 W_GAUSS = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 W_DERIV = (-2.0 / 16.0, -4.0 / 16.0, 0.0, 4.0 / 16.0, 2.0 / 16.0)
@@ -35,20 +33,8 @@ def grid_blur_xyz(grid: torch.Tensor, *, z_mode: str = 'derivative') -> torch.Te
         raise ValueError(f'z_mode must be one of {Z_MODES}, got {z_mode!r}')
     if grid.device.type == 'cpu':
         return grid_blur_xyz_plain(grid, z_mode=z_mode)
-    if not grid.is_cuda:
-        raise RuntimeError(f'grid_blur_xyz: unsupported device {grid.device}')
-    from ._build import check, load
-
-    fn = load('grid_blur_xyz').grid_blur_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    gz, gy, gx = grid.shape
     out = torch.empty_like(grid)
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(grid.data_ptr(), out.data_ptr(), gz, gy, gx, int(z_mode == 'gaussian'), stream),
-              'grid_blur_xyz')
-    launches['grid_blur_xyz'] += 1
+    launch('grid_blur_xyz', grid.device, grid, out, *grid.shape, int(z_mode == 'gaussian'))
     return out
 
 

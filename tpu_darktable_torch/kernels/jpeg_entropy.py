@@ -17,16 +17,13 @@ total words, overflow], equal for the same blocks.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from . import launches
+from . import launch
 from .._device import constant_on
 
-CHUNK = 64                # blocks a CTA of the lengths and emit launches (csrc)
-LAUNCHES_PER_SCAN = 3     # lengths, place, emit
+CHUNK = 64   # blocks a CTA of the lengths and emit launches (csrc)
 
 
 def blocks_per_mcu(n_comp: int, subsampling: int) -> int:
@@ -64,33 +61,18 @@ def jpeg_entropy(comp_blocks, subsampling: int, restart_interval: int, cap_words
                          f'{n_mcu} MCUs, {restart_interval}, {cap_words}')
     if dev.type == 'cpu':
         return jpeg_entropy_plain(comp_blocks, subsampling, restart_interval, cap_words)
-    if dev.type != 'cuda':
-        raise RuntimeError(f'jpeg_entropy: unsupported device {dev}')
     if not all(b.is_contiguous() for b in comp_blocks):
         raise RuntimeError('jpeg_entropy: blocks must be contiguous')
-    from ._build import check, load
-
-    fn = load('jpeg_entropy').jpeg_entropy_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int]
-                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 7)
-    fn.restype = ctypes.c_int
     ri = int(restart_interval)
     n_iv = -(-n_mcu // ri)
     n_chunks = n_iv * -(-(ri * bpm) // CHUNK)
-    y, cb, cr = (comp_blocks + (None, None))[:3]
-    with torch.cuda.device(dev):
-        words = torch.empty(n_iv * cap_words, dtype=torch.int32, device=dev)
-        small = torch.empty(n_iv + 2, dtype=torch.int64, device=dev)
-        bits = torch.empty(n_chunks * CHUNK, dtype=torch.int32, device=dev)
-        scratch = torch.empty(n_chunks + 2 * n_iv, dtype=torch.int64, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(y.data_ptr(), cb.data_ptr() if cb is not None else None,
-                 cr.data_ptr() if cr is not None else None,
-                 constant_on(table_entries().view(np.int32), dev).data_ptr(),
-                 n_mcu, ri, bpm, int(cap_words), bits.data_ptr(), scratch.data_ptr(),
-                 scratch[n_chunks:].data_ptr(), scratch[n_chunks + n_iv:].data_ptr(),
-                 small.data_ptr(), words.data_ptr(), stream), 'jpeg_entropy')
-    launches['jpeg_entropy'] += LAUNCHES_PER_SCAN
+    words = torch.empty(n_iv * cap_words, dtype=torch.int32, device=dev)
+    small = torch.empty(n_iv + 2, dtype=torch.int64, device=dev)
+    bits = torch.empty(n_chunks * CHUNK, dtype=torch.int32, device=dev)
+    scratch = torch.empty(n_chunks + 2 * n_iv, dtype=torch.int64, device=dev)
+    launch('jpeg_entropy', dev, *(comp_blocks + (None, None))[:3],
+           constant_on(table_entries().view(np.int32), dev), n_mcu, ri, bpm, int(cap_words), bits,
+           scratch, scratch[n_chunks:], scratch[n_chunks + n_iv:], small, words)
     return words, small
 
 

@@ -20,12 +20,10 @@ expf stays IEEE, which is most of what still separates it from the bound.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from . import launches
+from . import launch
 
 
 def nlm_core(planes: torch.Tensor, inv_h2: float, *, search_radius: int = 3,
@@ -41,20 +39,9 @@ def nlm_core(planes: torch.Tensor, inv_h2: float, *, search_radius: int = 3,
     if planes.device.type == 'cpu':
         return nlm_core_plain(planes, inv_h2, search_radius=search_radius,
                               patch_radius=patch_radius)
-    if not planes.is_cuda:
-        raise RuntimeError(f'nlm_core: unsupported device {planes.device}')
-    from ._build import check, load
-
-    fn = load('nlm_core').nlm_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    c, h, w = planes.shape
     out = torch.empty_like(planes)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(planes.data_ptr(), out.data_ptr(), c, h, w, search_radius, patch_radius,
-                 float(inv_h2), stream), 'nlm_core')
-    launches['nlm_core'] += 1
+    launch('nlm_core', planes.device, planes, out, *planes.shape, search_radius, patch_radius,
+           float(inv_h2))
     return out
 
 

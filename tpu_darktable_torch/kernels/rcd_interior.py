@@ -15,11 +15,9 @@ tile's work on average for the halo.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import launches
+from . import launch
 from ..ops._stencil import Shifter
 
 _EPS5 = 1e-5
@@ -36,21 +34,10 @@ def rcd_interior(cfa: torch.Tensor, *, r_par: tuple[int, int],
         raise RuntimeError(f'cfa must be a 2-D float32 tensor, got {cfa.dtype} {tuple(cfa.shape)}')
     if cfa.device.type == 'cpu':
         return rcd_interior_plain(cfa, r_par=r_par, b_par=b_par)
-    if not cfa.is_cuda:
-        raise RuntimeError(f'rcd_interior: unsupported device {cfa.device}')
-    from ._build import check, load
-
-    fn = load('rcd_interior').rcd_interior_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     x = cfa.contiguous()
     h, w = x.shape
     out = torch.empty((3, h, w), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(x.data_ptr(), out.data_ptr(), h, w, r_par[0], r_par[1],
-                 b_par[0], b_par[1], stream), 'rcd_interior')
-    launches['rcd_interior'] += 1
+    launch('rcd_interior', x.device, x, out, h, w, r_par[0], r_par[1], b_par[0], b_par[1])
     return out
 
 

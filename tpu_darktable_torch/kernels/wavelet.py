@@ -22,11 +22,9 @@ the kernel equals the plain version bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import launches
+from . import _build, launch
 
 _B3 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 MAX_LEVELS = 30   # a step of 2**levels must fit an int
@@ -51,28 +49,14 @@ def wavelet_core(planes: torch.Tensor, thresholds: torch.Tensor, *, levels: int 
     _check(planes, thresholds, levels)
     if planes.device.type == 'cpu':
         return wavelet_core_plain(planes, thresholds, levels=levels)
-    if not planes.is_cuda:
-        raise RuntimeError(f'wavelet_core: unsupported device {planes.device}')
-    from ._build import check, load
-
-    lib = load('wavelet_core')
-    fn = lib.wavelet_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    c, h, w = planes.shape
-    thr = thresholds.contiguous()
     out = torch.empty_like(planes)
     # levels past the launcher's shared-memory tile hand `current` on through
     # two scratch planes
-    deep = levels > lib.wavelet_fused_levels()
+    deep = levels > _build.load(_build.ENTRIES['wavelet_core'].source).wavelet_fused_levels()
     cur = torch.empty_like(planes) if deep else None
     tmp = torch.empty_like(planes) if deep else None
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(planes.data_ptr(), thr.data_ptr(), out.data_ptr(),
-                 cur.data_ptr() if deep else None, tmp.data_ptr() if deep else None,
-                 c, h, w, levels, stream), 'wavelet_core')
-    launches['wavelet_core'] += 1
+    launch('wavelet_core', planes.device, planes, thresholds.contiguous(), out, cur, tmp,
+           *planes.shape, levels)
     return out
 
 

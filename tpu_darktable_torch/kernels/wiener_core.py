@@ -22,13 +22,11 @@ the mean after the transform.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from .._device import device_cache
-from . import launches
+from . import launch
 
 _EPS = 1e-15
 
@@ -71,23 +69,12 @@ def wiener_tile_core(slabs: torch.Tensor, sig2: torch.Tensor, wf: np.ndarray, wi
     _check(slabs, sig2, wf, wi, k)
     if slabs.device.type == 'cpu':
         return wiener_tile_core_plain(slabs, sig2, wf, wi, k=k)
-    if not slabs.is_cuda:
-        raise RuntimeError(f'wiener_tile_core: unsupported device {slabs.device}')
-    from ._build import check, load
-
-    fn = load('wiener_tile_core').wiener_core_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     g, hh, ww = slabs.shape
     windows = _windows(k, np.asarray(wf, np.float32).tobytes(),
                        np.asarray(wi, np.float32).tobytes(), slabs.device)
-    sig2 = sig2.contiguous()
     out = torch.empty_like(slabs)
-    with torch.cuda.device(slabs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(slabs.data_ptr(), out.data_ptr(), sig2.data_ptr(), windows.data_ptr(),
-                 k, g, hh // k, ww // k, sig2.numel(), stream), 'wiener_tile_core')
-    launches['wiener_tile_core'] += 1
+    launch('wiener_tile_core', slabs.device, slabs, out, sig2.contiguous(), windows, k, g,
+           hh // k, ww // k, sig2.numel())
     return out
 
 

@@ -34,10 +34,10 @@ return after one flag check: nothing is recorded, launched or captured.
   so the programs that reuse their stages elsewhere (the sharded programs
   of parallel/, the piecewise workspaces) stay unmarked.  The host keeps
   its own log of the marks it enqueued, as kernels.launches counts
-  launches: a capture keeps its marks (`capturing`), and each replay logs
-  them with the host time of the replay and the call it belongs to
-  (`replayed`).  `marks()` reads the rings back once, after the work: no
-  synchronisation on the path.
+  launches: a capture keeps its marks in its record (_device.capturing),
+  and each replay logs them with the host time of the replay and the call
+  it belongs to (`replayed`).  `marks()` reads the rings back once, after
+  the work: no synchronisation on the path.
 - Counters: `count(name, key)`; `counters()` reads them with
   kernels.launches.
 
@@ -55,7 +55,6 @@ encode); counters `graph.captures` (by owner), `jpeg.host_fallbacks` and
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import itertools
 import os
 import threading
@@ -65,7 +64,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import kernels
+from .. import _device, kernels
 
 # marks a device's ring keeps, and spans and logged marks the host keeps
 CAPACITY = 1 << 20
@@ -74,7 +73,7 @@ TRACED = ('traced',)
 
 _on = False
 # .stack: the thread's open spans; .call, .device: its traced call and the
-# call's device; .capture: the marks of the capture under way, or None
+# call's device
 _local = threading.local()
 _lock = threading.Lock()
 _spans: deque = deque(maxlen=CAPACITY)
@@ -198,26 +197,6 @@ def _ring(device: torch.device) -> _Ring:
     return ring
 
 
-_launcher = None
-
-
-def _launch(ring: _Ring, mark_id: int, device: torch.device) -> None:
-    """The mark kernel on `device`'s current stream (a capture's, inside one)."""
-    global _launcher
-    from ..kernels._build import check, load
-
-    if _launcher is None:
-        fn = load('trace_mark').trace_mark_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _launcher = fn
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        check(_launcher(ring.count.data_ptr(), ring.data.data_ptr(), ring.capacity, mark_id,
-                        stream), 'trace_mark')
-
-
 def _write_plain(ring: _Ring, mark_id: int) -> None:
     """The mark kernel's plain version, for the CPU."""
     with _lock:
@@ -236,14 +215,16 @@ def mark(name: str) -> None:
         return
     device = _local.device
     mark_id = next(_ids)
-    captured = getattr(_local, 'capture', None)
+    captured = _device.current_capture()
     if captured is not None:
         # a node of the graph under capture: it records on each replay
-        captured.append((mark_id, name))
+        captured.marks.append((mark_id, name))
     else:
         _log.append((mark_id, name, call, time.perf_counter(), device))
     if device.type == 'cuda':
-        _launch(_ring(device), mark_id, device)
+        # on the current stream: the capture's, inside one
+        ring = _ring(device)
+        kernels.launch('trace_mark', device, ring.count, ring.data, ring.capacity, mark_id)
     elif captured is None:
         _write_plain(_ring(device), mark_id)
 
@@ -276,23 +257,10 @@ def call(name: str, device):
     return _Call(name, device)
 
 
-@contextlib.contextmanager
-def capturing():
-    """The marks made inside the block, by the calling thread, go into
-    the list it yields as (mark id, name) and are not logged: a CUDA
-    graph capture runs nothing (_graph.Graphed)."""
-    outer = getattr(_local, 'capture', None)
-    made: list = []
-    _local.capture = made
-    try:
-        yield made
-    finally:
-        _local.capture = outer
-
-
 def replayed(captured, device: torch.device) -> None:
-    """Log the marks of a capture (`capturing`) for one replay on
-    `device`, in the calling thread's traced call or a call of its own."""
+    """Log the marks of a capture's record (_device.Capture.marks) for one
+    replay on `device`, in the calling thread's traced call or a call of
+    its own."""
     call_id = getattr(_local, 'call', None) or next(_calls)
     now = time.perf_counter()
     _log.extend((mark_id, name, call_id, now, device) for mark_id, name in captured)
@@ -448,6 +416,6 @@ def trace_to(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
 
 
-__all__ = ['CAPACITY', 'Mark', 'Span', 'StageTimer', 'benchmark_op', 'call', 'capturing', 'count',
-           'counters', 'disable', 'enable', 'mark', 'marks', 'replayed', 'reset', 'span', 'spans',
-           'trace_to', 'tracing']
+__all__ = ['CAPACITY', 'Mark', 'Span', 'StageTimer', 'benchmark_op', 'call', 'count', 'counters',
+           'disable', 'enable', 'mark', 'marks', 'replayed', 'reset', 'span', 'spans', 'trace_to',
+           'tracing']
