@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
      over 3.35 TB/s or operations over 33.5 T/s, whichever is larger).
      bilateral_band and bilateral_fused are two wrappers of one source
      (csrc/bilateral_fused.cu); the Wiener core's error is printed for both
-     of its shapes.
+     of its shapes.  The LAB round trip's two kernels (csrc/lab.cu) on the
+     denoise stage's input and back with the bilateral stage's new plane,
+     bit for bit with their plain versions on the card.
   3. the RCD golden cases of tests/goldens/pipeline_goldens.npz on the card
      (1 uint8 count).
   4. one FULL frame at 1024x768 on the card against the same on the CPU
@@ -31,7 +33,8 @@ Phases (any failure raises and the script exits non-zero):
      the 3-pass colour smoothing and the bilateral detail term each in one
      wrapper call; its Wiener stage takes the separable float16 route of the
      default denoise_f16, as the JAX package's FULL does), so each must show
-     exactly BATCH * N_BATCHES = 12, and the other kernels 0.  ImageProcessor
+     exactly BATCH * N_BATCHES = 12, the LAB round trip's two kernels 24
+     (once a luminance stage: denoise, bilateral), and the other kernels 0.  ImageProcessor
      captures its batched program as a CUDA graph on the first call (eager)
      and replays it for the other two, so the counts are 4 eager, then 4 and
      4 replayed.  The same 3 batches go in turns through an eager copy of
@@ -58,8 +61,8 @@ Phases (any failure raises and the script exits non-zero):
      each with 3 colour-smoothing passes, of 8 mosaics of 4096x3000, 3
      passes: 8 rcd_interior and 16 color_smooth_diffs launches a pass.
   7. FULL with bil_sigma_spatial = 3, the general bilateral path, through
-     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches
-     and no bilateral_band; card vs CPU at 1024x768 (1 count); one
+     ImageProcessor at 4096x3000, 2 batches of 4: 8 grid_blur_xyz launches,
+     16 of each LAB kernel and no bilateral_band; card vs CPU at 1024x768 (1 count); one
      bilateral_denoise of a 12 MP plane (2 grid_blur_xyz launches).
   8. the Wiener routes at full width: wiener_denoise on the tile-core
      route (FULL's with denoise_f16 off) against the separable einsums in
@@ -77,7 +80,8 @@ Phases (any failure raises and the script exits non-zero):
   9. the piecewise entry point at 4096x3000: load_bytes -> debayer ->
      process_rgb -> tonemap with bounds and metrics from a fused run of the
      same frame, equal to the fused output within 1 count, one launch of
-     each of FULL's three kernels; its first call runs eagerly and captures
+     each of FULL's three kernels, 4 of lab_split and 2 of lab_merge (the
+     workspaces split twice a stage); its first call runs eagerly and captures
      each workspace's graph (the capture seconds and the GiB the processor's
      pool keeps reserved are printed); then 3 frames in turns through an
      eager copy and the graphed processor (eager, graphed, graphed, eager),
@@ -104,8 +108,8 @@ Phases (any failure raises and the script exits non-zero):
      StreamingExecutor(batch 2, quality 90, keep_images=False), a warm-up
      of 2 frames and 32 timed, once with device JPEG and once with 2 host
      workers, the EMA reset between: no errors, every result FF D8, equal
-     bytes frame for frame, 34 launches of each of FULL's three kernels a
-     run (and 102 of the scan kernel with device JPEG, 0 with host); s/frame, frames/s, MB/frame, and FULL's process_batch ms/frame
+     bytes frame for frame, 34 launches of each of FULL's three kernels and
+     68 of each LAB kernel a run (and 102 of the scan kernel with device JPEG, 0 with host); s/frame, frames/s, MB/frame, and FULL's process_batch ms/frame
      alone in the same call.  Last, the card's busy time and idle share
      (torch.profiler) of the DCT stage, the device entropy, one FULL batch
      of 2 and 2 streamed frames in each mode.
@@ -124,7 +128,7 @@ Phases (any failure raises and the script exits non-zero):
      non-neutral time and peak memory.  FULL with enable_laplacian and
      lap_clarity 0.3 (golden rcd_linear_lap's local contrast) at 4096x3000,
      3 batches of 4: ms/frame over batches 2-3, peak memory, 12 launches of
-     each of FULL's three kernels, no host wait in process_batch (CUDA sync
+     each of FULL's three kernels and 36 of each LAB kernel, no host wait in process_batch (CUDA sync
      debugging); card vs CPU at 1024x768 fused and piecewise (1 count).
  12. the command-line tools of tpu_darktable_torch/scripts/ on the card:
      run_benchmark in process at its default 4096x3000 (warm-up 1, 3
@@ -201,14 +205,29 @@ FP32_OPS_PER_S = 67e12 / 2
 W, H = 4096, 3000
 BATCH, N_BATCHES = 4, 3
 # FULL runs each of these once a frame and none of the other kernels (its
-# Wiener stage takes the separable float16 route of the default denoise_f16).
+# Wiener stage takes the separable float16 route of the default denoise_f16),
 FULL_KERNELS = ('rcd_interior', 'color_smooth_diffs', 'bilateral_band')
+# and the LAB round trip's two kernels once a luminance stage of a frame:
+# denoise and bilateral, and the local Laplacian where it is on.
+LAB_KERNELS = ('lab_split', 'lab_merge')
 WB = (1.2, 1.0, 1.1)
 REPO = Path(__file__).resolve().parent
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def full_launches(frames, stages=2, full_kernels=FULL_KERNELS, **others):
+    """The launches of `frames` frames of a FULL program with `stages`
+    luminance stages: each of `full_kernels` once a frame, each LAB kernel
+    once a stage, `others` as given, every other kernel 0."""
+    from tpu_darktable_torch import kernels
+
+    want = dict.fromkeys(kernels.launches, 0)
+    want.update({k: frames for k in full_kernels}, **{k: stages * frames for k in LAB_KERNELS})
+    want.update(others)
+    return want
 
 
 def cuda_ms(fn, iters=20, warmup=5):
@@ -384,6 +403,7 @@ def phase_kernels(dev):
     from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
     from tpu_darktable_torch.kernels.grid_blur import (W_DERIV, W_GAUSS, grid_blur_xyz,
                                                        grid_blur_xyz_plain)
+    from tpu_darktable_torch.kernels.lab import lab_merge, lab_merge_plain, lab_split, lab_split_plain
     from tpu_darktable_torch.kernels.nlm import nlm_core, nlm_core_plain
     from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
     from tpu_darktable_torch.kernels.wavelet import wavelet_core, wavelet_core_plain
@@ -520,6 +540,24 @@ def phase_kernels(dev):
     sweep = {lv: cuda_ms(lambda: wavelet_core(planes, thr, levels=lv), iters=10, warmup=2)
              for lv in range(9)}
     log('wavelet_core ms by levels: ' + ', '.join(f'{lv}: {t:.4f}' for lv, t in sweep.items()))
+    # The LAB round trip of the luminance stages (csrc/lab.cu) on the denoise
+    # stage's input, and back with the bilateral stage's new plane: bit for
+    # bit with the plain chain on the card (the split's two planes: the L of
+    # the clipped values, FULL's denoise, and L itself, its bilateral).  28
+    # bytes a pixel each way (12 in, 16 out; 16 in, 12 out); ~70 and ~60
+    # float operations a pixel with each powf counted as one: bytes bind.
+    pair_err = lambda a, b: max((x - y).abs().max().item() for x, y in zip(a, b))
+    split_pair = lambda cl: (lambda: lab_split(rgb_n, clipped_l=cl),
+                             lambda: lab_split_plain(rgb_n, clipped_l=cl))
+    no_tpu_kernel = 'none: the JAX package leaves the round trip to XLA'
+    record('lab_split', 'tpu_darktable_torch/csrc/lab.cu', no_tpu_kernel, *split_pair(True),
+           pair_err, 0.0, 28 * px, 70 * px, also=[split_pair(False)])
+    lab, l_clip = lab_split(rgb_n, clipped_l=True)
+    new_l = bilateral.bilateral_process(l_clip, 2.0, 0.2, 0.4)
+    record('lab_merge', 'tpu_darktable_torch/csrc/lab.cu', no_tpu_kernel,
+           lambda: lab_merge(lab, new_l), lambda: lab_merge_plain(lab, new_l),
+           lambda a, b: (a - b).abs().max().item(), 0.0, 28 * px, 60 * px)
+    del lab, l_clip, new_l
     record_wiener_core(dev, record, rgb_n)
     # The general path's grid: sigma_s = 3 does not divide 4096.
     gx3, gy3, gz3 = compute_grid_size(W, H, 3.0, 0.2)
@@ -770,11 +808,9 @@ def phase_full(dev):
     times = turns['graphed 1'][1]
 
     log(f'FULL launches: {launches}')
-    for name, n in launches.items():
-        want = BATCH * N_BATCHES if name in FULL_KERNELS else 0
-        if n != want:
-            raise AssertionError(f'kernel {name} launched {n} times on the FULL path, '
-                                 f'expected {want}')
+    want = full_launches(BATCH * N_BATCHES)
+    if launches != want:
+        raise AssertionError(f'the FULL path launched {launches}, expected {want}')
     if tuple(out.shape) != (BATCH, H, W, 3) or out.dtype != torch.uint8:
         raise AssertionError(f'FULL output {tuple(out.shape)} {out.dtype}')
     if not (torch.isfinite(proc.bounds).all() and torch.isfinite(proc.metrics).all()):
@@ -990,8 +1026,7 @@ def phase_general_bilateral(dev):
     launches = dict(kernels.launches)
     log(f'general bilateral launches: {launches}')
     n = BATCH * n_batches
-    want = dict.fromkeys(launches, 0)
-    want.update(rcd_interior=n, color_smooth_diffs=n, grid_blur_xyz=n)
+    want = full_launches(n, full_kernels=('rcd_interior', 'color_smooth_diffs'), grid_blur_xyz=n)
     if launches != want:
         raise AssertionError(f'general bilateral launched {launches}, expected {want}')
     if tuple(out.shape) != (BATCH, H, W, 3) or out.float().std().item() < 1.0:
@@ -1133,8 +1168,7 @@ def phase_wiener_route(dev):
     seconds = time.perf_counter() - t0
     tile_launches = dict(kernels.launches)
     log(f'FULL with denoise_f16 off launches: {tile_launches}')
-    want = dict.fromkeys(tile_launches, 0)
-    want.update({k: BATCH for k in FULL_KERNELS}, wiener_tile_core=BATCH)
+    want = full_launches(BATCH, wiener_tile_core=BATCH)
     if tile_launches != want:
         raise AssertionError(f'FULL with denoise_f16 off launched {tile_launches}, expected {want}')
     diff = (tiled.to(torch.int16) - ref.to(torch.int16)).abs()
@@ -1203,9 +1237,11 @@ def phase_piecewise(dev):
     if d > 1 or tuple(out.shape) != (H, W, 3) or out.dtype != torch.uint8:
         raise AssertionError(f'piecewise differs from fused by {d} counts, or has the wrong '
                              f'shape {tuple(out.shape)} {out.dtype}')
-    for name, n in launches.items():
-        if n != (1 if name in FULL_KERNELS else 0):
-            raise AssertionError(f'piecewise launched {name} {n} times')
+    # the workspaces' round trips split twice a stage (the L of the clipped
+    # frame, then the frame's LAB) and merge once
+    want = full_launches(1, lab_split=4, lab_merge=2)
+    if launches != want:
+        raise AssertionError(f'piecewise launched {launches}, expected {want}')
     graphed_captures = {n: k for n, (_, k) in workspace_captures(proc).items() if k}
 
     frames = synthetic_frames(W, H, 3, seed=710).to(dev)
@@ -1551,10 +1587,8 @@ def phase_jpeg(dev, smi):
             raise AssertionError(f'config 5 streaming failures: {bad} '
                                  f'{[r.error for r in results if r.error]}')
         scans = 3 * (warm + n_frames) if device_jpeg else 0   # the scan kernel's 3 a frame
-        for name, n in launches.items():
-            if n != (warm + n_frames if name in FULL_KERNELS else
-                     scans if name == 'jpeg_entropy' else 0):
-                raise AssertionError(f'config 5 launched {name} {n} times')
+        if launches != full_launches(warm + n_frames, jpeg_entropy=scans):
+            raise AssertionError(f'config 5 launched {launches}')
         mode = 'device_jpeg' if device_jpeg else 'host_jpeg_2_workers'
         executors[mode] = ex
         runs[mode] = {r.name: r.jpeg for r in results}
@@ -1699,9 +1733,8 @@ def phase_laplacian(dev):
     launches = dict(kernels.launches)
     full_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f'FULL+laplacian launches: {launches}')
-    for name, n in launches.items():
-        if n != (BATCH * N_BATCHES if name in FULL_KERNELS else 0):
-            raise AssertionError(f'FULL+laplacian launched {name} {n} times')
+    if launches != full_launches(BATCH * N_BATCHES, stages=3):
+        raise AssertionError(f'FULL+laplacian launched {launches}')
     if tuple(out.shape) != (BATCH, H, W, 3) or out.float().std().item() < 1.0:
         raise AssertionError(f'FULL+laplacian output {tuple(out.shape)} is wrong or flat')
     if not (torch.isfinite(proc.bounds).all() and torch.isfinite(proc.metrics).all()):

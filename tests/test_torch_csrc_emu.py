@@ -16,6 +16,7 @@ refuses, which only chip_smoke.py on the card can.
 """
 
 import ctypes
+import ctypes.util
 import re
 import shutil
 import subprocess
@@ -32,6 +33,7 @@ from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz_plain
 from tpu_darktable_torch.kernels.jpeg_entropy import (CHUNK, blocks_per_mcu, jpeg_entropy_plain,
                                                       table_entries)
+from tpu_darktable_torch.kernels.lab import lab_merge_plain, lab_split_plain
 from tpu_darktable_torch.kernels.nlm import nlm_core_plain
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core_plain
@@ -41,6 +43,8 @@ from tpu_darktable_torch.ops import jpeg as tjpeg
 from tpu_darktable_torch.ops.bayer import BayerPattern, site_parities
 from tpu_darktable_torch.ops.jpeg_entropy import entropy_encode_device_finalize
 from tpu_darktable_torch.ops.wiener import _gaussian_window
+
+import lab_grids
 
 torch.set_num_threads(1)
 # CPU emulation of the CUDA subset the csrc/*.cu sources use.  A block's
@@ -660,3 +664,180 @@ def test_jpeg_entropy_launcher_refuses_bad_arguments(emu_lib):
     fn = _bound(emu_lib, 'jpeg_entropy')
     for n_mcu, ri, bpm in ((4, 1, 2), (0, 1, 1), (4, 0, 1)):
         assert fn(*[None] * 4, n_mcu, ri, bpm, 16, *[None] * 7) == 1
+
+
+# ---- csrc/lab.cu: the LAB round trip ----
+#
+# The kernels round as PyTorch's CUDA kernels do: a Python number is float32
+# before it meets a tensor, and a division by one is a product by its
+# reciprocal, taken in double and rounded to float32.  `_card_split` / `_card_merge` are ops/color.py's chain in
+# numpy float32 with that rounding, and with the host's powf (the one the
+# host build of the source calls), so the source is held to them bit for bit:
+# every branch and every rounding.  The CPU chain (true divisions, PyTorch's
+# own pow) is held within LAB_SPLIT_ULPS and LAB_MERGE_ULPS.
+
+_F = np.float32
+_libm = ctypes.CDLL(ctypes.util.find_library('m'))
+_libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+_libm.powf.restype = ctypes.c_float
+_host_powf = np.frompyfunc(_libm.powf, 2, 1)
+_DELTA = lab_grids.DELTA
+
+
+def _pow(x, e):
+    return _host_powf(x, _F(e)).astype(np.float32)
+
+
+def _inv(v):
+    return _F(1.0 / v)
+
+
+def _decode(s):
+    return np.where(s <= _F(0.04045), s * _inv(12.92),
+                    _pow(np.maximum((s + _F(0.055)) * _inv(1.055), _F(1e-38)), 2.4))
+
+
+def _encode(v):
+    return np.where(v <= _F(0.0031308), _F(12.92) * v,
+                    _F(1.055) * _pow(np.maximum(v, _F(1e-38)), 1.0 / 2.4) - _F(0.055))
+
+
+def _lab_f(t):
+    return np.where(t > _F(_DELTA ** 3), _pow(np.maximum(t, _F(0.0)), 1.0 / 3.0),
+                    _F(1.0 / (3.0 * _DELTA * _DELTA)) * t + _F(4.0 / 29.0))
+
+
+def _lab_f_inv(t):
+    return np.where(t > _F(_DELTA), t * t * t, _F(3.0 * _DELTA * _DELTA) * (t - _F(4.0 / 29.0)))
+
+
+def _dot3(m, c):
+    return _F(m[0]) * c[0] + _F(m[1]) * c[1] + _F(m[2]) * c[2]
+
+
+_RGB_TO_XYZ = [[0.4124564, 0.3575761, 0.1804375], [0.2126729, 0.7151522, 0.0721750],
+               [0.0193339, 0.1191920, 0.9503041]]
+_XYZ_TO_RGB = [[3.2404542, -1.5371385, -0.4985314], [-0.9692660, 1.8760108, 0.0415560],
+               [0.0556434, -0.2040259, 1.0572252]]
+_WHITE = np.array([0.95047, 1.0, 1.08883], np.float32)
+
+
+def _card_l(f_y):
+    return (_F(116.0) * f_y - _F(16.0)) * _inv(100.0)
+
+
+def _card_split(rgb, clipped_l):
+    with np.errstate(invalid='ignore'):
+        lin = [_decode(rgb[:, c]) for c in range(3)]
+        f = [_lab_f(_dot3(_RGB_TO_XYZ[c], lin) / _WHITE[c]) for c in range(3)]
+        lab = np.stack([_card_l(f[1]), (_F(500.0) * (f[0] - f[1])) * _inv(128.0),
+                        (_F(200.0) * (f[1] - f[2])) * _inv(128.0)], -1)
+        if not clipped_l:
+            return lab, lab[:, 0].copy()
+        clipped = [np.minimum(np.maximum(v, _F(0.0)), _F(1.0)) for v in lin]
+        return lab, _card_l(_lab_f(_dot3(_RGB_TO_XYZ[1], clipped) / _WHITE[1]))
+
+
+def _card_merge(lab, lum):
+    with np.errstate(invalid='ignore'):
+        fy = (lum * _F(100.0) + _F(16.0)) * _inv(116.0)
+        fx = (lab[:, 1] * _F(128.0)) * _inv(500.0) + fy
+        fz = fy - (lab[:, 2] * _F(128.0)) * _inv(200.0)
+        xyz = [_lab_f_inv(f) * _WHITE[c] for c, f in enumerate((fx, fy, fz))]
+        return np.stack([np.minimum(np.maximum(_encode(_dot3(_XYZ_TO_RGB[c], xyz)), _F(0.0)),
+                                    _F(1.0)) for c in range(3)], -1)
+
+
+def _ulps_of_one(a, b):
+    """|a - b| in float32 ulps of 1.0 (2^-23), NaN against NaN 0, NaN
+    against a number inf: the chain's terms are of order 1, so a value near
+    0 (a and b are differences of two f values, an sRGB value a sum of
+    three XYZ terms) carries their rounding, not its own."""
+    d = np.abs(a.astype(np.float64) - b) / 2.0 ** -23
+    return np.where(np.isnan(a) & np.isnan(b), 0.0, np.where(np.isnan(d), np.inf, d))
+
+
+# The kernels against the CPU chain (measured over three seeds of the edge
+# grids: 4 for the split, 16.5 for the merge).  The CPU chain divides where
+# the card multiplies by a reciprocal (1 ulp apart in ~15% of values) and
+# its pow is PyTorch's, not the host's powf (up to 1 ulp).  The split adds
+# two such roundings of f values (< 1.3) and scales their difference by
+# 500/128; the merge cubes f values up to 1.2, sums three XYZ terms of up to
+# 6.4 (|XYZ_TO_RGB| up to 3.24) and encodes with a slope of up to 7 above
+# the knee.  Twice the measured maximum:
+LAB_SPLIT_ULPS = 8
+LAB_MERGE_ULPS = 32
+
+
+def _emu_split(emu_lib, rgb, clipped_l, offset):
+    """The kernel on rgb, with every buffer `offset` floats into its
+    allocation (1: no 16-byte alignment, the scalar path)."""
+    n = len(rgb)
+    src = np.empty(3 * n + offset, np.float32)
+    src[offset:] = rgb.reshape(-1)
+    lab = np.full(3 * n + offset, -7.0, np.float32)
+    lum = np.full(n + offset, -7.0, np.float32)
+    fn = _bound(emu_lib, 'lab_split')
+    assert fn(_p(src[offset:]), _p(lab[offset:]), _p(lum[offset:]), n, clipped_l, None) == 0
+    assert (lab[:offset] == -7.0).all() and (lum[:offset] == -7.0).all()
+    return lab[offset:].reshape(n, 3), lum[offset:]
+
+
+def _emu_merge(emu_lib, lab, lum, offset):
+    n = len(lab)
+    src = np.empty(3 * n + offset, np.float32)
+    src[offset:] = lab.reshape(-1)
+    plane = np.empty(n + offset, np.float32)
+    plane[offset:] = lum
+    out = np.full(3 * n + offset, -7.0, np.float32)
+    fn = _bound(emu_lib, 'lab_merge')
+    assert fn(_p(src[offset:]), _p(plane[offset:]), _p(out[offset:]), n, None) == 0
+    assert (out[:offset] == -7.0).all()
+    return out[offset:].reshape(n, 3)
+
+
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('clipped_l', [1, 0])
+def test_lab_split_source_on_host(emu_lib, rng, clipped_l, offset):
+    """Both planes of lab_split on the edge grid, on the 16-byte path and on
+    the scalar one: the card's rounding bit for bit (NaN where it is NaN),
+    the CPU chain within LAB_SPLIT_ULPS."""
+    rgb = lab_grids.edge_rgb(rng)
+    lab, lum = _emu_split(emu_lib, rgb, clipped_l, offset)
+    want_lab, want_lum = _card_split(rgb, clipped_l)
+    np.testing.assert_array_equal(lab, want_lab)
+    np.testing.assert_array_equal(lum, want_lum)
+    cpu_lab, cpu_lum = lab_split_plain(torch.from_numpy(rgb), clipped_l=bool(clipped_l))
+    assert _ulps_of_one(lab, cpu_lab.numpy()).max() <= LAB_SPLIT_ULPS
+    assert _ulps_of_one(lum, cpu_lum.numpy()).max() <= LAB_SPLIT_ULPS
+
+
+@pytest.mark.parametrize('offset', [0, 1])
+def test_lab_merge_source_on_host(emu_lib, rng, offset):
+    """lab_merge on the edge grid, on both paths: the card's rounding bit
+    for bit, the CPU chain within LAB_MERGE_ULPS."""
+    lab, lum = lab_grids.edge_merge(rng, _card_split(lab_grids.edge_rgb(rng), 0)[0])
+    out = _emu_merge(emu_lib, lab, lum, offset)
+    np.testing.assert_array_equal(out, _card_merge(lab, lum))
+    cpu = lab_merge_plain(torch.from_numpy(lab), torch.from_numpy(lum)).numpy()
+    assert _ulps_of_one(out, cpu).max() <= LAB_MERGE_ULPS
+
+
+@pytest.mark.parametrize('n', range(1, 10))
+def test_lab_source_tail_on_host(emu_lib, rng, n):
+    """1-9 pixels: whole quads, then the last 1-3 pixels one at a time; the
+    round trip of the split's LAB with its own L."""
+    rgb = rng.uniform(-0.1, 1.2, (n, 3)).astype(np.float32)
+    rgb[n // 2] = np.nan
+    lab, lum = _emu_split(emu_lib, rgb, 1, 0)
+    want_lab, want_lum = _card_split(rgb, 1)
+    np.testing.assert_array_equal(lab, want_lab)
+    np.testing.assert_array_equal(lum, want_lum)
+    np.testing.assert_array_equal(_emu_merge(emu_lib, lab, lab[:, 0].copy(), 0),
+                                  _card_merge(lab, lab[:, 0]))
+
+
+def test_lab_launchers_refuse_no_pixels(emu_lib):
+    """No pixels: cudaErrorInvalidValue, and nothing launched."""
+    assert _bound(emu_lib, 'lab_split')(None, None, None, 0, 1, None) == 1
+    assert _bound(emu_lib, 'lab_merge')(None, None, None, 0, None) == 1

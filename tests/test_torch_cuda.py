@@ -191,6 +191,107 @@ def test_routes_launch_their_kernels(dev):
     assert kernels.launches['bilateral_fused'] == 0
 
 
+# ---- the LAB round trip of the luminance stages (csrc/lab.cu)
+
+def _bits_equal(got, want, what):
+    """Equal value for value (NaN where NaN, either sign of zero); else the
+    differing values, each with its distance in float32 ulps."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    off = ~((g == w) | (torch.isnan(g) & torch.isnan(w)))
+    if bool(off.any()):
+        idx = torch.nonzero(off)[:, 0]
+        ulps = (g.view(torch.int32)[idx].long() - w.view(torch.int32)[idx].long()).abs()
+        shown = ', '.join(f'[{i}] {a:.9g} vs {b:.9g} ({u} ulp)' for i, a, b, u in zip(
+            idx[:20].tolist(), g[idx[:20]].tolist(), w[idx[:20]].tolist(), ulps[:20].tolist()))
+        raise AssertionError(f'{what}: {idx.numel()} of {g.numel()} values differ, at most '
+                             f'{int(ulps.max())} ulp: {shown}')
+
+
+def _scene_stage_input(dev, w, h, n=2, seed=2**31 + 24):
+    """The denoise stage's input on `n` of the benchmark's `artichoke` scenes:
+    FULL's front end and the bounds normalisation, (n, h, w, 3) on the card."""
+    from isp_bench import scene, spec
+    import tpu_darktable_torch as tt
+    from tpu_darktable_torch.pipeline.camera_settings import CameraSettings
+    from tpu_darktable_torch.pipeline.image_processor import ema_bounds
+    from tpu_darktable_torch.pipeline.util import normalize_image
+
+    cam = dict(spec.config('artichoke')['camera'], image_size=[w, h])
+    cs = CameraSettings.from_dict(cam)
+    fn = tt.build_pipeline_fn(cs.image_processing, cs.image_size, cs.bayer_pattern,
+                              cs.packed_format, cs.white_balance is not None)
+    frames = torch.from_numpy(scene.frame_pool(cam, n, seed, 'cpu')).to(dev)
+    wb = torch.tensor(cs.white_balance or (1.0, 1.0, 1.0), dtype=torch.float32, device=dev)
+    rgb, samples = fn.stages.front(frames, wb)
+    bounds = ema_bounds(samples, torch.zeros(2, device=dev), torch.ones((), device=dev))
+    return normalize_image(rgb, bounds)
+
+
+@pytest.mark.cuda
+def test_lab_kernels_on_card_scenes(dev):
+    """Both kernels against the plain chain on the card, bit for bit, on two
+    4096x3000 scenes at the denoise stage's input: the split with either
+    plane, a frame of the batch and the whole batch, and the merge of its
+    LAB with the bilateral stage's new plane."""
+    from tpu_darktable_torch.kernels.lab import (lab_merge, lab_merge_plain, lab_split,
+                                                 lab_split_plain)
+
+    x = _scene_stage_input(dev, 4096, 3000)
+    for clipped_l in (True, False):
+        lab, lum = lab_split(x, clipped_l=clipped_l)
+        want_lab, want_lum = lab_split_plain(x, clipped_l=clipped_l)
+        _bits_equal(lab, want_lab, f'lab_split LAB, clipped_l {clipped_l}')
+        _bits_equal(lum, want_lum, f'lab_split plane, clipped_l {clipped_l}')
+        assert lum.is_contiguous() and tuple(lum.shape) == tuple(x.shape[:-1])
+        one_lab, one_lum = lab_split(x[1], clipped_l=clipped_l)
+        assert torch.equal(one_lab, lab[1]) and torch.equal(one_lum, lum[1])
+        new = bilateral.bilateral_process(lum[0], 2.0, 0.2, 0.4)
+        _bits_equal(lab_merge(lab[0], new), lab_merge_plain(lab[0], new), 'lab_merge')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'unaligned'])
+def test_lab_kernels_on_card_edge_grid(dev, offset):
+    """The host emulation test's edge grid (every branch threshold and its
+    neighbouring floats, 0, -0, 1, NaN), on the 16-byte path and, one
+    float off alignment, on the scalar one; and 1-9 pixels, for the tail:
+    bit for bit with the plain chain on the card."""
+    import lab_grids
+    from tpu_darktable_torch.kernels.lab import (lab_merge, lab_merge_plain, lab_split,
+                                                 lab_split_plain)
+
+    def on_card(a):
+        buf = torch.empty(a.size + offset, dtype=torch.float32, device=dev)
+        return buf[offset:].view(a.shape).copy_(torch.from_numpy(a))
+
+    rng = np.random.default_rng(24)
+    rgb = on_card(lab_grids.edge_rgb(rng))
+    for clipped_l in (True, False):
+        got, want = lab_split(rgb, clipped_l=clipped_l), lab_split_plain(rgb, clipped_l=clipped_l)
+        _bits_equal(got[0], want[0], f'lab_split LAB, clipped_l {clipped_l}')
+        _bits_equal(got[1], want[1], f'lab_split plane, clipped_l {clipped_l}')
+    lab_np, lum_np = lab_grids.edge_merge(rng, lab_split_plain(rgb, clipped_l=False)[0].cpu().numpy())
+    lab, lum = on_card(lab_np), on_card(lum_np)
+    _bits_equal(lab_merge(lab, lum), lab_merge_plain(lab, lum), 'lab_merge')
+    for n in range(1, 10):
+        x = on_card(rng.uniform(-0.1, 1.2, (n, 3)).astype(np.float32))
+        got, want = lab_split(x, clipped_l=True), lab_split_plain(x, clipped_l=True)
+        _bits_equal(got[0], want[0], f'lab_split LAB, {n} pixels')
+        _bits_equal(got[1], want[1], f'lab_split plane, {n} pixels')
+        _bits_equal(lab_merge(got[0], got[1]), lab_merge_plain(got[0], got[1]),
+                    f'lab_merge, {n} pixels')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case,stages', [('full', 2), ('laplacian', 3)])
+def test_full_frame_launches_the_lab_kernels(dev, case, stages):
+    """One FULL frame splits and merges once a luminance stage: 2 and 2, 3
+    and 3 with the Laplacian, eager and in the processor's graph."""
+    _, _, _, _, eager_launches, launches = _graph_case(dev, case, n_batches=1, batch=1)
+    for got in (eager_launches, launches):
+        assert got['lab_split'] == stages and got['lab_merge'] == stages, got
+
+
 def _jpeg_image(seed, h, w):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
@@ -414,10 +515,12 @@ def test_graphed_process_batch_equals_eager(dev, case):
     for (a, ab, am), (b, bb, bm) in zip(eager, graphed):
         assert torch.equal(a, b) and torch.equal(ab, bb) and torch.equal(am, bm)
     assert launches == eager_launches
-    if case == 'full':
+    if case in ('full', 'laplacian'):
         assert all(launches[k] == 6 for k in ('rcd_interior', 'color_smooth_diffs',
                                               'bilateral_band'))
-        assert sum(launches.values()) == 18
+        stages = 3 if case == 'laplacian' else 2   # the LAB kernels: once a luminance stage
+        assert launches['lab_split'] == launches['lab_merge'] == 6 * stages
+        assert sum(launches.values()) == 18 + 12 * stages
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ from tpu_darktable_torch.kernels.bilateral_fused import bilateral_fused
 from tpu_darktable_torch.kernels.color_smooth import color_smooth_diffs, color_smooth_diffs_plain
 from tpu_darktable_torch.kernels.grid_blur import grid_blur_xyz
 from tpu_darktable_torch.kernels.jpeg_entropy import jpeg_entropy
+from tpu_darktable_torch.kernels.lab import lab_merge, lab_split
 from tpu_darktable_torch.kernels.nlm import nlm_core
 from tpu_darktable_torch.kernels.rcd_interior import RING, rcd_interior, rcd_interior_plain
 from tpu_darktable_torch.kernels.wavelet import wavelet_core
@@ -148,13 +149,16 @@ def test_cpu_runs_plain_versions_and_counts_nothing(rng):
     wiener_tile_core(torch.stack([x, x]), torch.tensor([0.01]), wf, wf, k=16)
     bilateral_fused(x, s=2, gz=6, sigma_r=0.2)
     jpeg_entropy([torch.zeros((4, 64), dtype=torch.int16)], 2, 2, 16)
+    lab, lum = lab_split(torch.stack([x] * 3, -1), clipped_l=True)
+    lab_merge(lab, lum)
     # and through the stage functions the pipeline calls
     tbil.bilateral_process(x, 2.0, 0.2, 0.4)
     twiener.wiener_denoise(torch.from_numpy(rng.random((96, 128)).astype(np.float32)), 0.05, 16, 4,
                            use_separable=False)
     assert kernels.launches == {'rcd_interior': 0, 'color_smooth_diffs': 0, 'bilateral_band': 0,
                                 'grid_blur_xyz': 0, 'wavelet_core': 0, 'nlm_core': 0,
-                                'wiener_tile_core': 0, 'bilateral_fused': 0, 'jpeg_entropy': 0}
+                                'wiener_tile_core': 0, 'bilateral_fused': 0, 'jpeg_entropy': 0,
+                                'lab_split': 0, 'lab_merge': 0}
 
 
 @pytest.mark.cuda

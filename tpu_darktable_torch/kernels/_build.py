@@ -71,6 +71,9 @@ ENTRIES = {
     # lengths, place, emit
     'jpeg_entropy': Entry('jpeg_entropy.cu', 'jpeg_entropy_launch',
                           (_P,) * 4 + (_LL, _LL, _I, _LL) + (_P,) * 7, counts=3),
+    # rgb, lab, lum, pixels, clipped_l / lab, lum, rgb, pixels
+    'lab_split': Entry('lab.cu', 'lab_split_launch', (_P, _P, _P, _LL, _I, _P)),
+    'lab_merge': Entry('lab.cu', 'lab_merge_launch', (_P, _P, _P, _LL, _P)),
     'trace_mark': Entry('mark.cu', 'trace_mark_launch', (_P, _P, _ULL, _LL, _P), counts=0),
 }
 # --fmad=false: no a*b+c contraction, so the kernels round like their plain

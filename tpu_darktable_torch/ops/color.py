@@ -1,7 +1,9 @@
 """Colour conversions on a trailing channel axis (counterpart of
 tpu_darktable/ops/color.py): sRGB <-> linear, LAB, luminance write-back,
 vibrance in LAB f-space, and Rec.601 gray.  Constants are the reference's
-float32 values."""
+float32 values.  The LAB round trip of the luminance stages (sRGB -> LAB
+and a luminance plane, and back) is kernels/lab.py's: on the card its two
+kernels, on the CPU this module's chain."""
 
 from __future__ import annotations
 
@@ -10,6 +12,9 @@ import torch
 
 from .._device import constant_on, scalar_on
 from .._validate import check_channels_last
+# kernels.lab's plain versions call this module's chain back (module
+# attributes, read when called)
+from ..kernels import lab as _lab
 
 _RGB_TO_XYZ = np.array(
     [
@@ -125,7 +130,12 @@ def lab_to_xyz(lab: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
-    return xyz_to_lab(rgb_to_xyz(rgb))
+    return rgb_to_lab_with_l(rgb)[0]
+
+
+def rgb_to_lab_with_l(rgb: torch.Tensor):
+    """(rgb_to_lab(rgb), its L as a contiguous plane)."""
+    return _lab.lab_split(rgb, clipped_l=False)
 
 
 def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
@@ -209,7 +219,7 @@ def modify_vibrance(rgb: torch.Tensor, amount: float = 0.0) -> torch.Tensor:
 
 def rgb_to_lab_l(rgb: torch.Tensor) -> torch.Tensor:
     """LAB L (normalized /100) of an RGB value."""
-    return rgb_to_lab(rgb)[..., 0]
+    return rgb_to_lab_with_l(rgb)[1]
 
 
 def compute_luminance(rgb: torch.Tensor) -> torch.Tensor:
@@ -241,18 +251,14 @@ def modify_log_luminance(rgb: torch.Tensor, log_luminance: torch.Tensor,
 
 def lab_modify_luminance(lab: torch.Tensor, new_luminance: torch.Tensor) -> torch.Tensor:
     """Replace LAB L and convert back to clipped sRGB."""
-    lab = torch.cat((new_luminance[..., None], lab[..., 1:]), dim=-1)
-    return _clip01(lab_to_rgb(lab))
+    return _lab.lab_merge(lab, new_luminance)
 
 
 def rgb_to_lab_with_clipped_l(rgb: torch.Tensor):
-    """(rgb_to_lab(rgb), L of clip01(rgb)) sharing the sRGB decode: the
-    decode commutes with clip01, so the linear values are clipped instead."""
-    check_channels_last(rgb, 'rgb')
-    lin = srgb_to_linear(rgb)
-    lab = xyz_to_lab(color_transform_3x3(lin, _RGB_TO_XYZ))
-    l_clipped = xyz_to_lab(color_transform_3x3(_clip01(lin), _RGB_TO_XYZ))[..., 0]
-    return lab, l_clipped
+    """(rgb_to_lab(rgb), L of clip01(rgb) as a contiguous plane) sharing the
+    sRGB decode: the decode commutes with clip01, so the linear values are
+    clipped instead."""
+    return _lab.lab_split(rgb, clipped_l=True)
 
 
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
@@ -278,6 +284,7 @@ __all__ = [
     'rgb_to_lab',
     'rgb_to_lab_l',
     'rgb_to_lab_with_clipped_l',
+    'rgb_to_lab_with_l',
     'rgb_to_xyz',
     'srgb_to_linear',
     'xyz_to_lab',

@@ -178,8 +178,7 @@ def build_pipeline_fn(settings: ImageProcessingSettings, image_size: tuple[int, 
     # both sides; otherwise the clipped L shares the sRGB decode.
     def lab_and_lum(rgb, input_clipped: bool):
         if input_clipped:
-            lab = _color.rgb_to_lab(rgb)
-            return lab, lab[..., 0]
+            return _color.rgb_to_lab_with_l(rgb)
         return _color.rgb_to_lab_with_clipped_l(rgb)
 
     def denoise(rgb):
